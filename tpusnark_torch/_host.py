@@ -1,11 +1,12 @@
 """tpusnark's JAX-free host modules that sit under tpusnark.backend.groth16.
 
-``keys.py``, ``setup.py`` (its host helpers) and ``verify.py`` import no JAX,
-but importing them through their package runs
+``keys.py``, ``setup.py`` (its host helpers), ``verify.py`` and
+``bls381.py`` (the BLS12-381 verifier checked against bellman's fixtures)
+import no JAX, but importing them through their package runs
 ``tpusnark/backend/groth16/__init__.py``, which imports the JAX prover (and,
 where JAX finds a GPU, starts a JAX client on it). So unless that package is
 already loaded, a bare package module with the right ``__path__`` stands in
-for it while the three submodules load, and is removed again. The submodules
+for it while the submodules load, and is removed again. The submodules
 stay registered under their full names: a later ``import
 tpusnark.backend.groth16`` runs the real ``__init__``, which reuses them, so
 both packages share one ``ProvingKey`` class.
@@ -19,7 +20,7 @@ import sys
 import types
 
 _PKG = "tpusnark.backend.groth16"
-_NAMES = ("keys", "setup", "verify")
+_NAMES = ("keys", "setup", "verify", "bls381")
 
 
 def _load():
@@ -38,4 +39,4 @@ def _load():
             del sys.modules[_PKG]
 
 
-keys, setup, verify = _load()
+keys, setup, verify, bls381 = _load()

@@ -8,9 +8,9 @@ key object, per device, beside (not in) tpusnark's ``_dev`` cache.
 
 from __future__ import annotations
 
-from tpusnark.fields.spec import BN254_FP
+from tpusnark.curves.config import get_curve
 
-from ... import _host
+from ... import _host, kernels
 from ...curves.encoding import g1_to_device, g2_to_device
 from ...fields.tfield import canonical_device, get_field
 
@@ -19,6 +19,15 @@ ProvingKey = _host.keys.ProvingKey
 VerifyingKey = _host.keys.VerifyingKey
 
 _ATTR = "_torch_tables"
+
+
+def ported_curve(name: str):
+    """tpusnark's CurveConfig of `name`, if the port has its kernels."""
+    if name not in kernels.CURVES:
+        raise NotImplementedError(
+            f"curve {name}: its kernels are not ported (ported: {', '.join(kernels.CURVES)})"
+        )
+    return get_curve(name)
 
 
 def _cache(pk) -> dict:
@@ -31,13 +40,13 @@ def set_device_tables(pk, device, tables: dict) -> None:
 
 
 def device_tables(pk, device) -> dict:
-    """Point tables of pk on `device`, encoded from the host points once."""
-    if pk.curve != "bn254":
-        raise NotImplementedError(f"curve {pk.curve}: the port covers BN254 only")
+    """Point tables of pk on `device`, encoded from the host points once
+    over the base field of pk's curve."""
+    cfg = ported_curve(pk.curve)
     key = str(canonical_device(device))
     cache = _cache(pk)
     if key not in cache:
-        fp = get_field(BN254_FP)
+        fp = get_field(cfg.fp_spec)
         cache[key] = {
             "a": g1_to_device(pk.a, fp, device),
             "b1": g1_to_device(pk.b1, fp, device),

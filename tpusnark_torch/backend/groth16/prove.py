@@ -1,5 +1,6 @@
-"""Groth16 prover over BN254 on torch tensors (counterpart of
-tpusnark/backend/groth16/prove.py).
+"""Groth16 prover on torch tensors (counterpart of
+tpusnark/backend/groth16/prove.py), over any curve whose kernels are ported
+(BN254 and BLS12-381); the curve is the proving key's.
 
 Pipeline: solve the witness on the host (``tpusnark.constraint.solver``),
 evaluate A/B/C on the device, compute the quotient H (3 INTT, 3 coset NTT,
@@ -18,21 +19,19 @@ import torch
 
 from tpusnark.backend.config import resolve
 from tpusnark.constraint.solver import solve
-from tpusnark.curves.ref import G1, G2
-from tpusnark.fields.spec import BN254_FP, BN254_FR
 
 from ...constraint.eval_torch import abc_evaluator
 from ...curves.encoding import g1_from_device_proj, g2_from_device_proj
 from ...fields.tfield import canonical_device, get_field
 from ...msm.pippenger import get_msm_for
 from ...poly.ntt import get_ntt
-from .keys import Proof, device_tables
+from .keys import Proof, device_tables, ported_curve
 
 
-def compute_h_dev(A, B, C, n: int, spec=BN254_FR):
-    """Quotient H = (A*B - C)/Z_H on the device of A; returns (8, n-1)
-    NORMAL-form words (the MSM scalar format). Inputs are (8, n_constraints)
-    Montgomery, padded to n here."""
+def compute_h_dev(A, B, C, n: int, spec):
+    """Quotient H = (A*B - C)/Z_H over the scalar field `spec`, on the
+    device of A; returns (words, n-1) NORMAL-form words (the MSM scalar
+    format). Inputs are (words, n_constraints) Montgomery, padded to n."""
     p = spec.modulus
     ntt = get_ntt(spec, n, A.device)
     f = ntt.field
@@ -58,8 +57,7 @@ def prove(cs, pk, assignment: dict, rng=None, config=None, timings: dict | None 
     device = canonical_device(device)
     if cs.commitments:
         raise NotImplementedError("BSB22 commitments are not ported yet")
-    if pk.curve != "bn254":
-        raise NotImplementedError(f"curve {pk.curve}: the port covers BN254 only")
+    cfg = ported_curve(pk.curve)
 
     def mark(name, t0):
         if timings is None:
@@ -71,7 +69,8 @@ def prove(cs, pk, assignment: dict, rng=None, config=None, timings: dict | None 
         return t
 
     pcfg = resolve(config, rng)
-    fr, fp = get_field(BN254_FR), get_field(BN254_FP)
+    fr, fp = get_field(cfg.fr_spec), get_field(cfg.fp_spec)
+    G1, G2 = cfg.host.G1, cfg.host.G2
     p = cs.modulus
     rand = pcfg.rng or (lambda: secrets.randbelow(p))
     r, s = rand(), rand()
@@ -83,12 +82,12 @@ def prove(cs, pk, assignment: dict, rng=None, config=None, timings: dict | None 
     A, B, C = abc_evaluator(cs, fr, device)(fr.encode(W, mont=True, device=device))
     w_dev = fr.encode(W, mont=False, device=device)
     t0 = mark("encode", t0)
-    h_dev = compute_h_dev(A, B, C, n)
+    h_dev = compute_h_dev(A, B, C, n, cfg.fr_spec)
     t0 = mark("h", t0)
 
     dev = device_tables(pk, device)
-    msm_g1 = get_msm_for("g1", cs.n_wires)
-    msm_g2 = get_msm_for("g2", cs.n_wires)
+    msm_g1 = get_msm_for("g1", cs.n_wires, cfg.name)
+    msm_g2 = get_msm_for("g2", cs.n_wires, cfg.name)
     if pk.k_wires is not None:
         priv = w_dev[:, torch.tensor(pk.k_wires, dtype=torch.int64, device=device)]
     else:
@@ -102,7 +101,7 @@ def prove(cs, pk, assignment: dict, rng=None, config=None, timings: dict | None 
 
     (ar_sum,) = g1_from_device_proj(ar_raw, fp)
     (bs1_sum,) = g1_from_device_proj(bs1_raw, fp)
-    (bs2_sum,) = g2_from_device_proj(bs2_raw, fp)
+    (bs2_sum,) = g2_from_device_proj(bs2_raw, fp, cfg.host.Fp2, cfg.fp2_q)
     (krs_k_sum,) = g1_from_device_proj(krs_k, fp)
     # a 1-constraint domain has deg(H) < 0 and an empty Z table
     krs_z_sum = None if krs_z_raw is None else g1_from_device_proj(krs_z_raw, fp)[0]

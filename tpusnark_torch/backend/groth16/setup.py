@@ -7,24 +7,23 @@ same rng gives the same keys as tpusnark. Every key point is one lane of two
 batched fixed-base multiplications (G1 and G2, ``FixedBaseMul``). The results
 are normalised to affine on the device (one batched Fermat inversion) and
 kept there as the prover's point tables; the host copies in the returned
-``ProvingKey`` and ``VerifyingKey`` are decoded from them. BSB22 commitments
-are not ported yet.
+``ProvingKey`` and ``VerifyingKey`` are decoded from them, as points of the
+curve's host module. Curves whose kernels are ported: BN254 and BLS12-381.
+BSB22 commitments are not ported yet.
 """
 
 from __future__ import annotations
 
 import secrets
 
-from tpusnark.curves.ref import R, Fp2
-from tpusnark.fields.spec import BN254_FP, BN254_FR
 from tpusnark.poly.domain import Domain
 
 from ... import _host
 from ...curves.batch_mul import FixedBaseMul, g1_generator_ladder, g2_generator_ladder
-from ...curves.tcurve import g1_ops, g2_ops
+from ...curves.tcurve import curve_ops, small_mul
 from ...fields.tfield import get_field
 from ...msm.pippenger import tree_map
-from .keys import ProvingKey, VerifyingKey, set_device_tables
+from .keys import ProvingKey, VerifyingKey, ported_curve, set_device_tables
 
 
 def to_affine(ops, pt):
@@ -34,8 +33,9 @@ def to_affine(ops, pt):
     X, Y, Z = pt
     inf = fa.is_zero(Z)
     if ops.g2:
+        # over u^2 = -q: (a + bu)^-1 = (a - bu) / (a^2 + q b^2)
         a, b = Z
-        d = f.inv(f.add(f.mul(a, a), f.mul(b, b)))  # (a + bu)^-1 = (a - bu)/(a^2 + b^2)
+        d = f.inv(f.add(f.mul(a, a), small_mul(f, f.mul(b, b), fa.q)))
         zi = (f.mul(a, d), f.neg(f.mul(b, d)))
     else:
         zi = f.inv(Z)
@@ -44,8 +44,9 @@ def to_affine(ops, pt):
     return (fa.select(inf, ident[0], x), fa.select(inf, ident[1], y), inf)
 
 
-def to_host(ops, aff):
-    """Device affine points -> list[(x, y) | None] (G2: Fp2 coordinates)."""
+def to_host(ops, aff, fp2_cls):
+    """Device affine points -> list[(x, y) | None] (G2: fp2_cls coordinates,
+    the curve's host Fp2 class)."""
     f = ops.fa.f
     X, Y, inf = aff
     comps = [c for v in (X, Y) for c in ops.fa.components(v)]
@@ -54,19 +55,20 @@ def to_host(ops, aff):
     if ops.g2:
         x0, x1, y0, y1 = vals
         return [
-            None if inf[i] else (Fp2(x0[i], x1[i]), Fp2(y0[i], y1[i])) for i in range(len(inf))
+            None if inf[i] else (fp2_cls(x0[i], x1[i]), fp2_cls(y0[i], y1[i]))
+            for i in range(len(inf))
         ]
     xs, ys = vals
     return [None if inf[i] else (xs[i], ys[i]) for i in range(len(inf))]
 
 
-def _batch(ops, ladder, scalars, device):
+def _batch(cfg, ops, ladder, scalars, device):
     """[s_i * G] for all i: (device affine table, host points)."""
-    fp, fr = get_field(BN254_FP), get_field(BN254_FR)
+    fp, fr = get_field(cfg.fp_spec), get_field(cfg.fr_spec)
     mul = FixedBaseMul(ops, fr)
-    table = ladder(fp, mul.n_bits, device)
+    table = ladder(fp, mul.n_bits, cfg.name, device)
     aff = to_affine(ops, mul(table, fr.encode(scalars, mont=False, device=device)))
-    return aff, to_host(ops, aff)
+    return aff, to_host(ops, aff, cfg.host.Fp2)
 
 
 def _cols(aff, lo: int, hi: int):
@@ -74,19 +76,20 @@ def _cols(aff, lo: int, hi: int):
 
 
 def setup(cs, rng=None, device="cpu", curve: str = "bn254"):
-    """(pk, vk) for an R1CS over BN254, with the key points computed on
-    `device`. rng: callable -> int in [1, r), as tpusnark's setup takes."""
-    if curve != "bn254":
-        raise NotImplementedError(f"curve {curve}: the port covers BN254 only")
-    if cs.modulus != R:
-        raise ValueError("circuit modulus is not BN254's r")
+    """(pk, vk) for an R1CS over `curve`'s r, with the key points computed
+    on `device`. rng: callable -> int in [1, r), as tpusnark's setup takes;
+    it is drawn in tpusnark's order, so the same rng gives the same keys as
+    tpusnark's setup(..., curve=curve)."""
+    cfg = ported_curve(curve)
+    if cs.modulus != cfg.host.R:
+        raise ValueError(f"circuit modulus is not {curve}'s r")
     if cs.commitments:
         raise NotImplementedError("BSB22 commitments are not ported yet")
     host = _host.setup
-    p = R
+    p = cfg.host.R
     rand = rng or (lambda: secrets.randbelow(p - 1) + 1)
     n = host._next_pow2(max(1, len(cs.constraints)))
-    dom = Domain(BN254_FR, n)
+    dom = Domain(cfg.fr_spec, n)
 
     alpha, beta, gamma, delta, t = (rand() for _ in range(5))
     while pow(t, n, p) == 1:
@@ -108,12 +111,11 @@ def setup(cs, rng=None, device="cpu", curve: str = "bn254"):
         z_s.append(zt * delta_inv % p * ti % p)
         ti = ti * t % p
 
-    fp = get_field(BN254_FP)
-    g1, g2 = g1_ops(fp), g2_ops(fp)
+    g1, g2 = curve_ops(curve)
     # one G1 batch: [A | B | K_vk | K_pk | Z | alpha, beta, delta]
     nw = cs.n_wires
     g1_dev, g1_pts = _batch(
-        g1, g1_generator_ladder, A + B + k_vk_s + k_pk_s + z_s + [alpha, beta, delta], device
+        cfg, g1, g1_generator_ladder, A + B + k_vk_s + k_pk_s + z_s + [alpha, beta, delta], device
     )
     bounds = {}
     o = 0
@@ -121,7 +123,7 @@ def setup(cs, rng=None, device="cpu", curve: str = "bn254"):
         bounds[name] = (o, o + size)
         o += size
     alpha_g1, beta_g1, delta_g1 = g1_pts[o : o + 3]
-    g2_dev, g2_pts = _batch(g2, g2_generator_ladder, B + [beta, gamma, delta], device)
+    g2_dev, g2_pts = _batch(cfg, g2, g2_generator_ladder, B + [beta, gamma, delta], device)
     beta_g2, gamma_g2, delta_g2 = g2_pts[nw : nw + 3]
 
     def host_pts(name):

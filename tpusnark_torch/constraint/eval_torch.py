@@ -17,8 +17,10 @@ from ..fields.tfield import Field, canonical_device
 class ABCEvaluator:
     """Bound to one ConstraintSystem, field and device.
 
-    __call__(w_mont) -> (A, B, C), each (8, n_constraints) Montgomery, for
-    w_mont (8, n_wires) Montgomery words on the same device."""
+    __call__(w_mont) -> (A, B, C), each (words, n_constraints) Montgomery,
+    for w_mont (words, n_wires) Montgomery words on the same device. The
+    segment sums hold at any word count: a column sums at most 2^16 words
+    < 2^32 (Field.segment_sum)."""
 
     def __init__(self, cs, field: Field, device="cpu"):
         self.field = field

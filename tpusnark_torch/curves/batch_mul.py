@@ -1,9 +1,9 @@
 """Batched fixed-base scalar multiplication (counterpart of
 tpusnark/curves/batch_mul.py:FixedBaseMul), used by Groth16 setup.
 
-The base is fixed, so the 2^k * G ladder is built once on the host from
-``tpusnark.curves.ref``, and the device runs one complete mixed add per scalar
-bit over the whole scalar vector. tpusnark selects between acc and acc + 2^k G
+The base is fixed, so the 2^k * G ladder is built once on the host from the
+curve's host module (``CurveConfig.host``), and the device runs one complete
+mixed add per scalar bit over the whole scalar vector. tpusnark selects between acc and acc + 2^k G
 after the add; here lanes whose bit is 0 are the add's infinity lanes, which
 return acc unchanged: the same result, in one kernel launch (B5) per bit.
 """
@@ -14,7 +14,7 @@ import functools
 
 import torch
 
-from tpusnark.curves.ref import G1, G2
+from tpusnark.curves.config import get_curve
 
 from ..fields.tfield import Field
 from ..msm.pippenger import tree_map
@@ -31,7 +31,8 @@ class FixedBaseMul:
 
     def __call__(self, table_xy, scalars_norm):
         """table_xy: (X, Y) coordinates with trailing axis n_bits (the 2^k * G
-        ladder, never infinity); scalars_norm: (8, N) normal-form words.
+        ladder, never infinity); scalars_norm: (words, N) normal-form words
+        (bit k is bit k % 32 of word k // 32, for any word count).
         Returns projective points with batch N."""
         ops = self.ops
         tX, tY = table_xy
@@ -48,9 +49,10 @@ class FixedBaseMul:
 
 
 @functools.lru_cache(maxsize=8)
-def _ladder_host(group: str, n_bits: int):
+def _ladder_host(group: str, n_bits: int, curve: str):
     """2^k * generator for k < n_bits, python ints."""
-    G = G1 if group == "g1" else G2
+    host = get_curve(curve).host
+    G = host.G1 if group == "g1" else host.G2
     out, p = [], G.generator()
     for _ in range(n_bits):
         out.append(p)
@@ -58,17 +60,17 @@ def _ladder_host(group: str, n_bits: int):
     return out
 
 
-def g1_generator_ladder(fp: Field, n_bits: int, device="cpu"):
+def g1_generator_ladder(fp: Field, n_bits: int, curve: str, device="cpu"):
     """(X, Y) tensors with trailing axis n_bits."""
-    pts = _ladder_host("g1", n_bits)
+    pts = _ladder_host("g1", n_bits, curve)
     return (
         fp.encode([pt[0] for pt in pts], device=device),
         fp.encode([pt[1] for pt in pts], device=device),
     )
 
 
-def g2_generator_ladder(fp: Field, n_bits: int, device="cpu"):
-    pts = _ladder_host("g2", n_bits)
+def g2_generator_ladder(fp: Field, n_bits: int, curve: str, device="cpu"):
+    pts = _ladder_host("g2", n_bits, curve)
     X = (
         fp.encode([pt[0].c0 for pt in pts], device=device),
         fp.encode([pt[0].c1 for pt in pts], device=device),

@@ -1,34 +1,32 @@
 """Host <-> device point encoding (counterpart of tpusnark/curves/encoding.py).
 
 Host points are affine python-int tuples ((x, y) for G1, (Fp2, Fp2) for G2)
-or None for infinity, as in ``tpusnark.curves.ref``. Device points are
-``(X, Y, inf)`` with ``(8, N)`` Montgomery word tensors (G2: ``(c0, c1)``
-tuples) and a bool ``(N,)`` mask; infinity lanes hold the placeholder
-(0, 1).
+or None for infinity, as in the curve's host module (``tpusnark.curves.ref``
+for BN254, ``tpusnark.curves.bls12381`` for BLS12-381). Device points are
+``(X, Y, inf)`` with ``(words, N)`` Montgomery word tensors (G2: ``(c0,
+c1)`` tuples) and a bool ``(N,)`` mask; infinity lanes hold the placeholder
+(0, 1). Every function takes the base field, and the G2 decoders the host
+Fp2 class and the nonresidue q (u^2 = -q) of the curve: there is no default
+curve.
 """
 
 from __future__ import annotations
 
 import torch
 
-from tpusnark.curves.ref import Fp2
-from tpusnark.fields.spec import BN254_FP
-
-from ..fields.tfield import Field, get_field
+from ..fields.tfield import Field
 
 
-def g1_to_device(points, fp: Field | None = None, device="cpu"):
+def g1_to_device(points, fp: Field, device="cpu"):
     """list[(x, y) | None] -> (X, Y, inf) tensors on `device`."""
-    fp = fp or get_field(BN254_FP)
     xs = [0 if pt is None else pt[0] for pt in points]
     ys = [1 if pt is None else pt[1] for pt in points]
     inf = torch.tensor([pt is None for pt in points], dtype=torch.bool)
     return (fp.encode(xs, device=device), fp.encode(ys, device=device), inf.to(device))
 
 
-def g2_to_device(points, fp: Field | None = None, device="cpu"):
+def g2_to_device(points, fp: Field, device="cpu"):
     """list[(Fp2, Fp2) | None] -> ((X0, X1), (Y0, Y1), inf) tensors."""
-    fp = fp or get_field(BN254_FP)
 
     def coord(i, c, dflt):
         return fp.encode(
@@ -43,9 +41,8 @@ def g2_to_device(points, fp: Field | None = None, device="cpu"):
     )
 
 
-def g1_from_device_proj(pt, fp: Field | None = None):
+def g1_from_device_proj(pt, fp: Field):
     """Projective (X, Y, Z) tensors (batch 1 or N) -> list[(x, y) | None]."""
-    fp = fp or get_field(BN254_FP)
     p = fp.modulus
     xs, ys, zs = (fp.decode(c) for c in pt)
     out = []
@@ -58,9 +55,10 @@ def g1_from_device_proj(pt, fp: Field | None = None):
     return out
 
 
-def g2_from_device_proj(pt, fp: Field | None = None):
-    """Projective G2 tensors -> list[(Fp2, Fp2) | None] (u^2 = -1)."""
-    fp = fp or get_field(BN254_FP)
+def g2_from_device_proj(pt, fp: Field, fp2_cls, q: int):
+    """Projective G2 tensors -> list[(fp2_cls, fp2_cls) | None]. The
+    projective inverse is over Fp[u]/(u^2 + q):
+    (a + bu)^-1 = (a - bu) / (a^2 + q b^2)."""
     p = fp.modulus
     (X0, X1), (Y0, Y1), (Z0, Z1) = pt
     x0, x1, y0, y1, z0, z1 = (fp.decode(c) for c in (X0, X1, Y0, Y1, Z0, Z1))
@@ -70,12 +68,12 @@ def g2_from_device_proj(pt, fp: Field | None = None):
         if a == 0 and b == 0:
             out.append(None)
             continue
-        d = pow((a * a + b * b) % p, -1, p)
+        d = pow((a * a + q * b * b) % p, -1, p)
         za, zb = a * d % p, (-b) * d % p
         out.append(
             (
-                Fp2((x0[i] * za - x1[i] * zb) % p, (x0[i] * zb + x1[i] * za) % p),
-                Fp2((y0[i] * za - y1[i] * zb) % p, (y0[i] * zb + y1[i] * za) % p),
+                fp2_cls((x0[i] * za - q * x1[i] * zb) % p, (x0[i] * zb + x1[i] * za) % p),
+                fp2_cls((y0[i] * za - q * y1[i] * zb) % p, (y0[i] * zb + y1[i] * za) % p),
             )
         )
     return out

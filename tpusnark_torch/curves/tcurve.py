@@ -1,23 +1,28 @@
-"""Batched elliptic-curve arithmetic on torch tensors (BN254 G1 and G2).
+"""Batched elliptic-curve arithmetic on torch tensors (G1 over Fp, G2 over
+Fp2 = Fp[u]/(u^2 + q)).
 
 Counterpart of ``tpusnark/curves/jcurve.py``: Renes-Costello-Batina complete
 projective formulas for a = 0, identity (0 : 1 : 0). Coordinates are field
-elements ``(8, *batch)`` (G2: ``(c0, c1)`` tuples of them); points are
+elements ``(words, *batch)`` (G2: ``(c0, c1)`` tuples of them); points are
 ``(X, Y, Z)`` tuples and affine points ``(X, Y, inf)`` with ``inf`` a bool
 ``(*batch,)`` mask.
 
 ``CurveOps`` composes the group law from field operations; on CPU tensors
 it is the plain version of the two curve kernels. ``KernelCurveOps`` (in place
 of tpusnark's ``FusedCurveOps``) sends ``add`` and ``add_mixed`` of CUDA
-tensors to ``csrc/curve.cu`` and everything on the CPU to ``CurveOps``.
+tensors to the curve's kernels (``csrc/curve_<curve>.cu``) and everything on
+the CPU to ``CurveOps``. ``curve_ops(name)`` builds both groups from
+tpusnark's ``CurveConfig``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..fields.tfield import Field, _flat
+from tpusnark.curves.config import get_curve
+
 from .. import kernels
+from ..fields.tfield import Field, _flat, get_field
 
 
 class FpArith:
@@ -62,7 +67,7 @@ class FpArith:
         return self._many(self.f.sub, pairs)
 
     def mul_b3(self, x):
-        # 3b = 9 for BN254 G1: 9x = 8x + x
+        # 3b = 9 (BN254 G1): 9x = 8x + x; else a Montgomery product by 3b
         if self.b3 == 9:
             x2 = self.f.add(x, x)
             x4 = self.f.add(x2, x2)
@@ -92,12 +97,30 @@ class FpArith:
         return cs[0]
 
 
-class Fp2Arith:
-    """Fp2 = Fp[u]/(u^2 + 1); elements are (c0, c1) tuples of Fp tensors."""
+def small_mul(f: Field, x, k: int):
+    """k * x for a small host int k >= 1 by lazy double-and-add, in the
+    order of jcurve._small_mul."""
+    acc, addend = None, x
+    while k:
+        if k & 1:
+            acc = addend if acc is None else f.add(acc, addend)
+        k >>= 1
+        if k:
+            addend = f.add(addend, addend)
+    return acc
 
-    def __init__(self, field: Field, b3_fp2: tuple[int, int]):
+
+class Fp2Arith:
+    """Fp2 = Fp[u]/(u^2 + q); elements are (c0, c1) tuples of Fp tensors.
+
+    q = 1 for BN254 and BLS12-381 (u^2 = -1), 5 for BLS12-377."""
+
+    def __init__(self, field: Field, b3_fp2: tuple[int, int], q: int):
+        if not 1 <= q <= 16:
+            raise ValueError("a small nonresidue q is expected")
         self.f = field
         self._b3 = b3_fp2  # (c0, c1) python ints, normal form
+        self.q = q
 
     def add(self, a, b):
         return (self.f.add(a[0], b[0]), self.f.add(a[1], b[1]))
@@ -133,7 +156,7 @@ class Fp2Arith:
         )
         T = f.mul(A, B)
         t0, t1, t2 = T[:, :k], T[:, k : 2 * k], T[:, 2 * k :]
-        c0 = f.sub(t0, t1)
+        c0 = f.sub(t0, small_mul(f, t1, self.q))
         c1 = f.sub(t2, f.add(t0, t1))
         return [(c0[:, i], c1[:, i]) for i in range(k)]
 
@@ -264,22 +287,30 @@ class KernelCurveOps(CurveOps):
     """CurveOps whose add and add_mixed run the hand-written kernels (B6, B5)
     on CUDA tensors and the plain CurveOps formulas on CPU tensors.
 
-    Operands are broadcast to one batch shape and flattened to (8, N) around
-    the kernel, as FusedCurveOps flattens around the TPU kernel."""
+    Operands are broadcast to one batch shape and flattened to (words, N)
+    around the kernel, as FusedCurveOps flattens around the TPU kernel. The
+    kernels of a curve build in its G1 add chain (3b = 9) and its Fp2 q, so
+    ops over a base field with kernels must carry that curve's constants; 3b
+    itself goes to the kernel in Montgomery form."""
 
     def __init__(self, fa):
         super().__init__(fa)
         self.g2 = isinstance(fa, Fp2Arith)
-        if not self.g2 and fa.b3 != 9:
-            raise ValueError("the G1 kernel is specialised to 3b = 9 (BN254)")
+        curve = kernels.curve_of(fa.f.spec)
+        if curve is not None:
+            cfg = get_curve(curve)
+            if self.g2 and fa.q != cfg.fp2_q:
+                raise ValueError(f"the {curve} G2 kernels are built for q = {cfg.fp2_q}")
+            if not self.g2 and (fa.b3 == 9) != (3 * cfg.g1_b == 9):
+                raise ValueError(f"the {curve} G1 kernels are built for 3b = {3 * cfg.g1_b}")
         self._b3_words = None
 
-    def _b3(self, device):
-        if not self.g2:
-            return None
+    def _b3(self):
+        """The uint32 words of 3b (G1) or 3b' (G2: c0 then c1), Montgomery."""
         if self._b3_words is None:
-            b0, b1 = self.fa.b3_const("cpu")
-            words = torch.cat([b0, b1]).numpy().view("uint32")
+            fa = self.fa
+            consts = fa.b3_const("cpu") if self.g2 else (fa.f.const(fa.b3, mont=True),)
+            words = torch.cat(consts).numpy().view("uint32")
             self._b3_words = [int(w) for w in words]
         return self._b3_words
 
@@ -291,7 +322,7 @@ class KernelCurveOps(CurveOps):
         flat = [_flat(t) for t in tensors]
         if inf is not None:
             inf = inf.expand(batch).reshape(-1).contiguous()
-        outs = kernels.curve_op(op, self.g2, flat, inf=inf, b3_words=self._b3(flat[0].device))
+        outs = kernels.curve_op(op, self.g2, fa.f.spec, flat, self._b3(), inf=inf)
         outs = [o.view((o.shape[0],) + tuple(batch)) for o in outs]
         d = len(fa.components(coords[0]))
         return tuple(fa.from_components(outs[i * d : (i + 1) * d]) for i in range(3))
@@ -314,17 +345,20 @@ class KernelCurveOps(CurveOps):
         return super().add_mixed(p, q_affine)
 
 
-def _g2_b3() -> tuple[int, int]:
-    # BN254: b' = 3/(9+u); 3b' as an Fp2 constant (jcurve._g2_b3)
-    from tpusnark.curves.ref import XI, Fp2 as RefFp2
-
-    b3 = RefFp2(3, 0) * XI.inv() * 3
-    return (b3.c0, b3.c1)
-
-
-def g1_ops(field_fp: Field, b: int = 3) -> KernelCurveOps:
+def g1_ops(field_fp: Field, b: int) -> KernelCurveOps:
+    """G1: y^2 = x^3 + b over field_fp."""
     return KernelCurveOps(FpArith(field_fp, b=b))
 
 
-def g2_ops(field_fp: Field) -> KernelCurveOps:
-    return KernelCurveOps(Fp2Arith(field_fp, _g2_b3()))
+def g2_ops(field_fp: Field, b3: tuple[int, int], q: int) -> KernelCurveOps:
+    """G2 over Fp[u]/(u^2 + q), with 3b' = b3 = (c0, c1)."""
+    return KernelCurveOps(Fp2Arith(field_fp, tuple(b3), q))
+
+
+def curve_ops(name: str) -> tuple[KernelCurveOps, KernelCurveOps]:
+    """(G1, G2) ops of a curve with G2 over Fp2, from tpusnark's CurveConfig."""
+    cfg = get_curve(name)
+    if cfg.g2_over_fp or cfg.g2_fp4:
+        raise NotImplementedError(f"curve {name}: G2 over Fp or Fp4 is not ported yet")
+    fp = get_field(cfg.fp_spec)
+    return g1_ops(fp, cfg.g1_b), g2_ops(fp, cfg.g2_b3, cfg.fp2_q)

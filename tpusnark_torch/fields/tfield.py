@@ -1,10 +1,16 @@
-"""Batched BN254 field arithmetic on torch tensors.
+"""Batched prime-field arithmetic on torch tensors.
 
-Counterpart of ``tpusnark/fields/jfield.py:Field``. Elements are eight
-little-endian 32-bit words held in ``int32`` tensors of shape ``(8, *batch)``
-(uint32 bit patterns), limb axis first, in Montgomery form with R = 2^256 —
-the same R as tpusnark's sixteen 16-bit limbs, so Montgomery forms agree.
-Outputs of mul/add/sub stay in the lazy range [0, 2p); compare values mod p.
+Counterpart of ``tpusnark/fields/jfield.py:Field``. An element of a field
+whose FieldSpec has n 16-bit limbs is ``words = ceil(n / 2)`` little-endian
+32-bit words held in ``int32`` tensors of shape ``(words, *batch)`` (uint32
+bit patterns), limb axis first, in Montgomery form with R = 2^(32 * words):
+8 words for BN254 (R = 2^256), 9 for BLS12-381 fr (R = 2^288), 12 for
+BLS12-381 fp (R = 2^384). Where n is even, R is tpusnark's 2^(16 n) and the
+Montgomery forms agree bit for bit; for a 17-limb spec (BLS12-381 fr)
+tpusnark's R is 2^272, so this module encodes and decodes with its own R and
+``convert.py`` re-encodes state that crosses between the two. 4p < R holds
+for every spec, so jfield.py's lazy [0, 2p) contract carries over: outputs
+of mul/add/sub stay in [0, 2p); compare values mod p.
 
 Each operation with a hand-written kernel (mul, from_mont, add, sub, neg)
 dispatches on the device of its operands: a CUDA tensor goes to the kernel in
@@ -28,8 +34,6 @@ from tpusnark.fields.spec import FieldSpec
 
 from .. import kernels
 
-WORDS = 8
-LIMBS = 16
 M16 = 0xFFFF
 M32 = 0xFFFFFFFF
 _I64 = torch.int64
@@ -44,26 +48,41 @@ def canonical_device(device) -> torch.device:
 
 
 # ------------------------------------------------------------ host encoding
-def ints_to_words(spec: FieldSpec, xs, mont: bool = True) -> np.ndarray:
-    """Python ints -> (8, N) int32 words (Montgomery by default).
+def n_words(spec: FieldSpec) -> int:
+    """32-bit words per element: ceil(n_limbs / 2)."""
+    return -(-spec.n_limbs // 2)
 
-    FieldSpec.encode builds little-endian 16-bit limbs; viewing that buffer
-    as little-endian 32-bit words gives the port's layout."""
-    limbs = np.ascontiguousarray(spec.encode(list(xs), mont=mont).astype("<u2"))
-    words = limbs.view("<u4").reshape(-1, WORDS)
-    return np.ascontiguousarray(words.T).view(np.int32)
+
+@functools.lru_cache(maxsize=None)
+def mont_r(spec: FieldSpec) -> tuple[int, int]:
+    """(R mod p, R^-1 mod p) for the port's R = 2^(32 * words)."""
+    r = (1 << (32 * n_words(spec))) % spec.modulus
+    return r, pow(r, -1, spec.modulus)
+
+
+def ints_to_words(spec: FieldSpec, xs, mont: bool = True) -> np.ndarray:
+    """Python ints -> (words, N) int32 words (Montgomery form, R = 2^(32
+    words), by default; else the canonical value)."""
+    p, m = spec.modulus, n_words(spec)
+    r = mont_r(spec)[0] if mont else 1
+    buf = b"".join((int(x) * r % p).to_bytes(4 * m, "little") for x in xs)
+    words = np.frombuffer(buf, dtype="<u4").reshape(-1, m)
+    return np.array(words.T, dtype="<u4", order="C").view(np.int32)
 
 
 def words_to_ints(spec: FieldSpec, words, mont: bool = True) -> list[int]:
-    """(8, *batch) words (tensor or array) -> flat list of ints mod p."""
+    """(words, *batch) words (tensor or array) -> flat list of ints mod p."""
     if isinstance(words, torch.Tensor):
         words = words.detach().cpu().numpy()
-    arr = np.asarray(words).view(np.uint32).reshape(WORDS, -1)
-    limbs = np.ascontiguousarray(arr.T.astype("<u4")).view("<u2")
-    return spec.decode(limbs.reshape(-1, LIMBS), mont=mont)
+    m = n_words(spec)
+    arr = np.asarray(words).view(np.uint32).reshape(m, -1)
+    b = np.ascontiguousarray(arr.T.astype("<u4")).tobytes()
+    p, rinv = spec.modulus, (mont_r(spec)[1] if mont else 1)
+    step = 4 * m
+    return [int.from_bytes(b[i : i + step], "little") * rinv % p for i in range(0, len(b), step)]
 
 
-def _int_words(x: int, m: int = WORDS) -> torch.Tensor:
+def _int_words(x: int, m: int) -> torch.Tensor:
     """(m,) int64 32-bit words of a host integer."""
     return torch.tensor([(x >> (32 * k)) & M32 for k in range(m)], dtype=_I64)
 
@@ -97,7 +116,8 @@ def _pow3(m: int, device: str) -> torch.Tensor:
 def _lex_prefix(t: torch.Tensor) -> torch.Tensor:
     """For every word k, the sign of the most significant nonzero t_j with
     j < k (0 if none), for all k at once: sum_j sign(t_j) * 3^j has the sign
-    of its highest nonzero term. Returns (m + 1, *b): row m is over all j."""
+    of its highest nonzero term. Returns (m + 1, *b): row m is over all j.
+    The sum stays inside int64 for m <= 39 rows (2 * MAX_WORDS = 32 here)."""
     w = _bcast(_pow3(t.shape[0], str(t.device)), t)
     cs = torch.cumsum(torch.sign(t) * w, dim=0)
     return torch.cat([torch.zeros_like(cs[:1]), cs], dim=0)
@@ -122,19 +142,22 @@ def _sub_words(x: torch.Tensor, y: torch.Tensor):
 
 
 def _product_cols(x16: torch.Tensor, y16: torch.Tensor) -> torch.Tensor:
-    """16-bit limbs (16, *b) x (16, *b) -> (16, *b) int64 columns of weight
-    2^(32k) of the 512-bit product (antidiagonal sums of the outer product,
-    each < 2^36, paired into 32-bit columns < 2^53)."""
+    """16-bit limbs (2m, *b) x (2m, *b) -> (2m, *b) int64 columns of weight
+    2^(32k) of the 64m-bit product: antidiagonal sums of the outer product,
+    paired into 32-bit columns. With 2m limbs an antidiagonal sums at most
+    2m products < 2^32, so at 12 words (24 limbs) each is < 24 * 2^32 < 2^37
+    and a paired column < 2^54, inside _normalize's 2^62."""
+    n = x16.shape[0]
     outer = x16[:, None] * y16[None]
-    idx = _antidiag_index(str(x16.device))
-    cols = torch.zeros((2 * LIMBS,) + tuple(outer.shape[2:]), dtype=_I64, device=x16.device)
-    cols.index_add_(0, idx, outer.reshape((LIMBS * LIMBS,) + tuple(outer.shape[2:])))
+    idx = _antidiag_index(n, str(x16.device))
+    cols = torch.zeros((2 * n,) + tuple(outer.shape[2:]), dtype=_I64, device=x16.device)
+    cols.index_add_(0, idx, outer.reshape((n * n,) + tuple(outer.shape[2:])))
     return cols[0::2] + (cols[1::2] << 16)
 
 
 @functools.lru_cache(maxsize=None)
-def _antidiag_index(device: str) -> torch.Tensor:
-    i = torch.arange(LIMBS)
+def _antidiag_index(n: int, device: str) -> torch.Tensor:
+    i = torch.arange(n)
     return (i[:, None] + i[None, :]).reshape(-1).to(device)
 
 
@@ -152,41 +175,50 @@ def _device_kind(*ts) -> str:
     return kind
 
 
-class Field:
-    """Limb arithmetic bound to one 256-bit FieldSpec (BN254 fr or fp).
+MAX_WORDS = 16
 
-    Array convention: limb axis first, shape (8, *batch), int32 words."""
+
+class Field:
+    """Word arithmetic bound to one FieldSpec of at most MAX_WORDS words.
+
+    Array convention: limb axis first, shape (words, *batch), int32 words.
+    ``self.r`` and ``self.r2`` are R and R^2 mod p for the port's R."""
 
     def __init__(self, spec: FieldSpec):
-        if spec.n_limbs != LIMBS:
-            raise ValueError(f"{spec.name}: the word layout covers 16-limb (256-bit) specs only")
+        m = n_words(spec)
+        if m > MAX_WORDS:
+            raise ValueError(f"{spec.name}: {m} words; the plain versions cover {MAX_WORDS}")
         self.spec = spec
-        self.n = WORDS
+        self.n = m
         p = spec.modulus
         self.modulus = p
-        self._p = _int_words(p)
-        self._2p = _int_words(2 * p)
-        self._4p = _int_words(4 * p)
+        self.r, self.r_inv = mont_r(spec)
+        self.r2 = self.r * self.r % p
+        self._p = _int_words(p, m)
+        self._2p = _int_words(2 * p, m)
         self._p16 = _split16(self._p)
-        self._pp16 = _split16(_int_words(spec.pprime_full))
+        self._pp16 = _split16(_int_words(-pow(p, -1, 1 << (32 * m)) % (1 << (32 * m)), m))
         self._consts: dict = {}
 
     # ------------------------------------------------------------ encoding
+    def to_mont_int(self, x: int) -> int:
+        return int(x) % self.modulus * self.r % self.modulus
+
     def encode(self, xs, mont: bool = True, device="cpu") -> torch.Tensor:
-        """Python ints -> (8, len(xs)) words on `device`."""
+        """Python ints -> (words, len(xs)) words on `device`."""
         return torch.from_numpy(ints_to_words(self.spec, xs, mont)).to(device)
 
     def decode(self, a: torch.Tensor, mont: bool = True) -> list[int]:
-        """(8, *batch) -> flat list of ints mod p (batch row-major)."""
+        """(words, *batch) -> flat list of ints mod p (batch row-major)."""
         return words_to_ints(self.spec, a, mont)
 
     def const(self, x: int, mont: bool = False, device="cpu") -> torch.Tensor:
-        """A (8,) constant; with mont, stores x*R mod p. Cached per device."""
+        """A (words,) constant; with mont, stores x*R mod p. Cached per device."""
         key = (int(x), mont, str(canonical_device(device)))
         c = self._consts.get(key)
         if c is None:
-            v = self.spec.to_mont_int(x) if mont else int(x) % self.modulus
-            c = _pack(_int_words(v)).to(device)
+            v = self.to_mont_int(x) if mont else int(x) % self.modulus
+            c = _pack(_int_words(v, self.n)).to(device)
             self._consts[key] = c
         return c
 
@@ -194,7 +226,7 @@ class Field:
         return _bcast(c, like).expand(like.shape)
 
     def zeros(self, shape=(), device="cpu") -> torch.Tensor:
-        return torch.zeros((WORDS, *shape), dtype=torch.int32, device=device)
+        return torch.zeros((self.n, *shape), dtype=torch.int32, device=device)
 
     def one(self, device="cpu") -> torch.Tensor:
         return self.const(1, mont=True, device=device)
@@ -232,12 +264,12 @@ class Field:
         return torch.where(borrow, s, d)
 
     def add_plain(self, a, b):
-        s, _ = _normalize(_w64(a) + _w64(b))  # < 4p < 2^256: no carry out
+        s, _ = _normalize(_w64(a) + _w64(b))  # < 4p < R: no carry out
         return _pack(self._reduce_2p(s))
 
     def _sub64(self, x, y):
         d, borrow = _sub_words(x, y)
-        s, _ = _normalize(d + _bcast(self._2p, d) * borrow.to(_I64))  # mod 2^256
+        s, _ = _normalize(d + _bcast(self._2p, d) * borrow.to(_I64))  # mod R
         return s
 
     def sub_plain(self, a, b):
@@ -257,12 +289,13 @@ class Field:
         return self._unary("from_mont", a, self.from_mont_plain)
 
     def _redc(self, t):
-        """(16, *b) words of T < R*p -> (8, *b) words of (T + m*p)/R with
+        """(2m, *b) words of T < R*p -> (m, *b) words of (T + m*p)/R with
         m = -T/p mod R: full-word Montgomery, as jfield.py's _mul_impl."""
-        m_cols = _product_cols(_split16(t[:WORDS]), _bcast(self._pp16, t))[:WORDS]
+        w = self.n
+        m_cols = _product_cols(_split16(t[:w]), _bcast(self._pp16, t))[:w]
         m, _ = _normalize(m_cols)  # mod R
         s, _ = _normalize(t + _product_cols(_split16(m), _bcast(self._p16, t)))
-        return s[WORDS:]  # the low half is zero mod R; result < 2p
+        return s[w:]  # the low half is zero mod R; result < 2p
 
     def mul_plain(self, a, b):
         t, _ = _normalize(_product_cols(_split16(_w64(a)), _split16(_w64(b))))
@@ -276,7 +309,7 @@ class Field:
         return self.mul(a, a)
 
     def to_mont(self, a):
-        return self.mul(a, self.broadcast_const(self.const(self.spec.r2, device=a.device), a))
+        return self.mul(a, self.broadcast_const(self.const(self.r2, device=a.device), a))
 
     def mul_const(self, a, c: int):
         """Multiply by a host constant given in normal form."""
@@ -303,7 +336,7 @@ class Field:
 
     @staticmethod
     def select(cond, a, b):
-        """cond: (*batch,) bool; a, b: (8, *batch)."""
+        """cond: (*batch,) bool; a, b: (words, *batch)."""
         return torch.where(cond, a, b)
 
     # ------------------------------------------------------------ inversion
@@ -322,28 +355,29 @@ class Field:
 
     # ------------------------------------------------------------ wide sums
     def reduce_columns(self, cols: torch.Tensor, bound: int):
-        """(8, *b) int64 columns of weight 2^(32k) (each < 2^62), total value
-        <= bound, to an element in [0, 2p). Needs bound < 2^32 * 2p.
+        """(words, *b) int64 columns of weight 2^(32k) (each < 2^62), total
+        value V <= bound, to an element congruent to V in [0, 2p). Needs
+        bound < 2^32 * 2p.
 
-        tpusnark folds wide columns down with host powers of 2^16 mod p; here
-        the part above 2^256 = R is one small integer c, and c * R mod p is a
-        Montgomery product with R^2 mod p."""
+        tpusnark folds wide columns down with host powers of 2^16 mod p.
+        Here V = lo + c*R with lo < R and c = V / R < 2^33 p / R < 2^31 (as
+        4p < R); REDC(lo) = lo/R (<= p, from_mont takes any lo < R), plus c
+        is V/R < 2p, and a Montgomery product with R^2 brings it back to V."""
         if bound >= (1 << 32) * 2 * self.modulus:
             raise ValueError("reduce_columns: bound too wide")
-        lo, carry = _normalize(cols)  # value = lo + carry * 2^256
-        for m in (self._4p, self._2p):  # lo < 2^256 < 6p -> lo < 2p
-            d, borrow = _sub_words(lo, _bcast(m, lo))
-            lo = torch.where(borrow, lo, d)
-        hi = torch.cat([carry[None], torch.zeros_like(lo[1:])], dim=0)
-        r2 = self.const(self.spec.r2, device=cols.device)
-        return self.add(_pack(lo), self.mul(_pack(hi), self.broadcast_const(r2, hi)))
+        lo, carry = _normalize(cols)  # V = lo + carry * R
+        c = torch.cat([carry[None], torch.zeros_like(lo[1:])], dim=0)
+        v_over_r = self.add(self.from_mont(_pack(lo)), _pack(c))
+        r2 = self.const(self.r2, device=cols.device)
+        return self.mul(v_over_r, self.broadcast_const(r2, v_over_r))
 
     def segment_sum(self, values, segment_ids, num_segments: int, max_segment: int = 1 << 16):
-        """Segmented sum mod p: values (8, T) in [0, 2p), ids (T,); at most
-        max_segment values per segment."""
+        """Segmented sum mod p: values (words, T) in [0, 2p), ids (T,); at most
+        max_segment values per segment, so each int64 column sums at most
+        2^16 words < 2^32 (< 2^48) at any word count."""
         if max_segment > 1 << 16:
             raise ValueError("segment_sum: segments longer than 2^16")
-        cols = torch.zeros((WORDS, num_segments), dtype=_I64, device=values.device)
+        cols = torch.zeros((self.n, num_segments), dtype=_I64, device=values.device)
         cols.index_add_(1, segment_ids.to(_I64), _w64(values))
         return self.reduce_columns(cols, max_segment * (2 * self.modulus - 1))
 

@@ -22,8 +22,9 @@ point image is dropped (32-bit words fill the lanes already). The group law
 is ``CurveOps``: on CUDA tensors its add and add_mixed are the kernels
 B6 and B5.
 
-Coordinates are ``(8, *batch)`` words (G2: ``(c0, c1)`` tuples); a point is
-an ``(X, Y, Z)`` tuple of them; keys are int64.
+Coordinates are ``(words, *batch)`` words (G2: ``(c0, c1)`` tuples); a
+point is an ``(X, Y, Z)`` tuple of them; scalars are ``(words, ...)`` words
+of the scalar field; keys are int64.
 """
 
 from __future__ import annotations
@@ -60,16 +61,16 @@ def _take(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def get_msm(curve: str = "g1", c: int = 13) -> "MSM":
-    """Shared BN254 MSM engine per (group, window size)."""
-    from tpusnark.fields.spec import BN254_FP, BN254_FR
+def get_msm(group: str, c: int, curve_name: str) -> "MSM":
+    """Shared MSM engine per (group "g1" or "g2", window size, curve), with
+    the ops of tpusnark's CurveConfig for the curve."""
+    from tpusnark.curves.config import get_curve
 
-    from ..curves.tcurve import g1_ops, g2_ops
+    from ..curves.tcurve import curve_ops
     from ..fields.tfield import get_field
 
-    fp = get_field(BN254_FP)
-    ops = g1_ops(fp) if curve == "g1" else g2_ops(fp)
-    return MSM(ops, get_field(BN254_FR), c=c)
+    g1, g2 = curve_ops(curve_name)
+    return MSM(g1 if group == "g1" else g2, get_field(get_curve(curve_name).fr_spec), c=c)
 
 
 def auto_c(n_points: int) -> int:
@@ -77,12 +78,13 @@ def auto_c(n_points: int) -> int:
     return max(2, min(16, max(1, n_points).bit_length()))
 
 
-def get_msm_for(curve: str, n_points: int) -> "MSM":
-    return get_msm(curve, auto_c(n_points))
+def get_msm_for(group: str, n_points: int, curve_name: str) -> "MSM":
+    return get_msm(group, auto_c(n_points), curve_name)
 
 
 def window_digits(scalars: torch.Tensor, c: int, n_windows: int) -> torch.Tensor:
-    """(8, N) normal-form words -> (n_windows, N) int64 c-bit digits."""
+    """(words, N) normal-form words -> (n_windows, N) int64 c-bit digits;
+    windows past the top word read zeros."""
     u = scalars.to(_I64) & 0xFFFFFFFF  # int32 >> would sign-extend
     mask = (1 << c) - 1
     out = []
@@ -137,12 +139,12 @@ class MSM:
         self.nbuckets = 1 << (c - 1)
 
     def __call__(self, points_affine, scalars_norm):
-        """points: (X, Y, inf), coords (8, N); scalars: (8, N) NORMAL-form
-        words. Returns a projective point with batch 1."""
+        """points: (X, Y, inf), coords (words, N); scalars: (words, N)
+        NORMAL-form words. Returns a projective point with batch 1."""
         return self._msm_core(points_affine, scalars_norm[:, None, :])
 
     def many(self, points_affine, scalars_norm_k):
-        """k MSMs over shared points: scalars (8, k, N). Returns batch k."""
+        """k MSMs over shared points: scalars (words, k, N). Returns batch k."""
         return self._msm_core(points_affine, scalars_norm_k)
 
     # ------------------------------------------------------------ tiny N
@@ -154,7 +156,7 @@ class MSM:
         all bits are folded over the points at once, then combined by a
         binary tree (level l doubles the odd half 2^l times) in ~scalar_bits
         doublings and log2(scalar_bits) adds instead of one add per bit.
-        scalars: (8, k, N); returns a batch-k point."""
+        scalars: (words, k, N); returns a batch-k point."""
         ops = self.ops
         X, Y, inf = points_affine
         u = scalars.to(_I64) & 0xFFFFFFFF
@@ -164,7 +166,7 @@ class MSM:
             + [torch.zeros_like(u[0])] * (nb - self.scalar_bits)
         )  # (nb, k, N)
         pts = ops.from_affine(tree_map(lambda a: a[:, None, None, :], (X, Y)) + (inf,))
-        sel = ops.select(bits == 1, pts, ops.identity_like(pts[0]))  # (8, nb, k, N)
+        sel = ops.select(bits == 1, pts, ops.identity_like(pts[0]))  # (words, nb, k, N)
 
         m = inf.shape[-1]
         while m > 1:  # fold over the points
@@ -175,7 +177,7 @@ class MSM:
             half = m // 2
             sel = ops.add(tree_map(lambda a: a[..., :half], sel), tree_map(lambda a: a[..., half:], sel))
             m = half
-        acc = tree_map(lambda a: a[..., 0], sel)  # (8, nb, k): per-bit sums
+        acc = tree_map(lambda a: a[..., 0], sel)  # (words, nb, k): per-bit sums
         width = 1
         while nb > 1:  # sum_b 2^b S_b by pairs: S_2j + 2^width S_2j+1
             odd = tree_map(lambda a: a[:, 1::2], acc)
@@ -188,7 +190,7 @@ class MSM:
 
     # ------------------------------------------------------------ pipeline
     def _msm_core(self, points_affine, scalars):
-        """MSM of k polynomials over one shared point set; scalars (8, k, N0).
+        """MSM of k polynomials over one shared point set; scalars (words, k, N0).
         Returns a projective point with batch dim k."""
         X, Y, inf = points_affine
         N0 = inf.shape[-1]
@@ -217,12 +219,12 @@ class MSM:
         digits = _pad_last(torch.where(live, mags - 1 + poly_off, BK), M, BK)  # (W, M)
         signs = _pad_last(signs, M, False)
 
-        def image(a):  # (8, N0) -> (8, M): tiled over polys, zero-padded
+        def image(a):  # (words, N0) -> (words, M): tiled over polys, zero-padded
             return _pad_last(a.repeat(1, k) if k > 1 else a, M)
 
         XY = tree_map(image, (X, Y))
 
-        # every window at once: (W, M) keys, (8, W, M) coordinates
+        # every window at once: (W, M) keys, (words, W, M) coordinates
         order = torch.argsort(digits, dim=-1, stable=True)
         skey = torch.gather(digits, -1, order)
         ssgn = torch.gather(signs, -1, order)

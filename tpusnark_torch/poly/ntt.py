@@ -1,17 +1,18 @@
 """Radix-2 NTT over a Domain (counterpart of tpusnark/poly/ntt.py).
 
-Arrays are ``(8, *batch, n)`` words with the domain axis last. The transform
+Arrays are ``(words, *batch, n)`` words with the domain axis last. The transform
 is plain iterative DIT: a bit-reverse gather, then the stages in pairs
 through the radix-4 butterfly (B4) and an odd last stage through the radix-2
-butterfly (B3). Each butterfly works on flat ``(8, N)`` operands and a flat
+butterfly (B3). Each butterfly works on flat ``(words, N)`` operands and a flat
 twiddle row tiled across groups, the contract of tpusnark's ``_butterfly``
 and ``_butterfly4``. tpusnark's four-step split and packed-table slicing
 exist for the TPU's (8, 128) tiling and are not carried over; the packed
 table layout (stage s at columns [2^s - 1, 2^(s+1) - 1)) is kept because it
 makes each stage's twiddles one contiguous slice.
 
-On CUDA tensors the butterflies are the kernels of ``csrc/ntt.cu``; on CPU
-tensors their plain versions below, built from the field's plain ops.
+On CUDA tensors the butterflies are the kernels of ``csrc/ntt.cu`` for the
+domain's field; on CPU tensors their plain versions below, built from the
+field's plain ops.
 """
 
 from __future__ import annotations
@@ -25,8 +26,6 @@ from tpusnark.poly.domain import Domain, bit_reverse_perm
 
 from .. import kernels
 from ..fields.tfield import _device_kind, _flat, canonical_device, get_field
-
-L = 8
 
 
 class NTT:
@@ -69,9 +68,9 @@ class NTT:
 
     # ------------------------------------------------------------ butterflies
     def butterfly(self, e, o, w):
-        """B3: (e + o*w, e - o*w) on flat (8, N) tensors."""
+        """B3: (e + o*w, e - o*w) on flat (words, N) tensors."""
         if _device_kind(e, o, w) == "cuda":
-            return kernels.butterfly(e, o, w)
+            return kernels.butterfly(self.spec, e, o, w)
         return self.butterfly_plain(e, o, w)
 
     def butterfly_plain(self, e, o, w):
@@ -82,7 +81,7 @@ class NTT:
     def butterfly4(self, x0, x1, x2, x3, w1, w2a, w2b):
         """B4: two DIT stages; returns (y0+u2, y1+u3, y0-u2, y1-u3)."""
         if _device_kind(x0, x1, x2, x3, w1, w2a, w2b) == "cuda":
-            return kernels.butterfly4(x0, x1, x2, x3, w1, w2a, w2b)
+            return kernels.butterfly4(self.spec, x0, x1, x2, x3, w1, w2a, w2b)
         return self.butterfly4_plain(x0, x1, x2, x3, w1, w2a, w2b)
 
     def butterfly4_plain(self, x0, x1, x2, x3, w1, w2a, w2b):
@@ -97,11 +96,11 @@ class NTT:
 
     # ------------------------------------------------------------ stages
     def _stages(self, x, table):
-        """DIT stages over the last axis of a bit-reversed x (8, *batch, n).
+        """DIT stages over the last axis of a bit-reversed x (words, *batch, n).
 
         Stage s (half = 2^s) pairs positions q and q + half inside blocks of
         2^(s+1) with twiddle w^((q mod half) * n / 2^(s+1))."""
-        n = self.n
+        n, L = self.n, self.field.n
         lead = tuple(x.shape[1:-1])
         x = x.reshape(L, -1, n)
         B = x.shape[1]
@@ -140,7 +139,7 @@ class NTT:
         return x.reshape((L,) + lead + (n,))
 
     def _bcast_table(self, tbl, x):
-        return tbl.reshape((L,) + (1,) * (x.dim() - 2) + (self.n,))
+        return tbl.reshape((self.field.n,) + (1,) * (x.dim() - 2) + (self.n,))
 
     # ------------------------------------------------------------ entry points
     def ntt(self, x):

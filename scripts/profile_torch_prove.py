@@ -1,0 +1,127 @@
+#!/usr/bin/env python3
+"""Phase times and device busy share of the port's Groth16 prove on one GPU.
+
+    python3 scripts/profile_torch_prove.py [--curves bw6-761,bls12-377] [--proves 4]
+
+Per curve, on chip_smoke.py's 2^17 multiplication chain: one setup, then
+`--proves` proves with phase timing (the first builds the NTT tables and the
+A/B/C index arrays, the others are warm), then one warm prove under
+``torch.profiler``. From the profile it prints the device time by kernel, the
+device busy time (kernel intervals merged, so that overlapping kernels count
+once) and the idle share of that prove's wall time. Every line of numbers
+stands after the card's name and power limit. Needs a CUDA device; imports
+neither JAX nor tpusnark.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import random
+import sys
+import tempfile
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import chip_smoke  # noqa: E402
+
+
+def merged_busy_us(events) -> float:
+    """Total length of the union of (start, duration) intervals."""
+    busy, end = 0.0, -1.0
+    for ts, dur in sorted(events):
+        if ts > end:
+            busy += dur
+            end = ts + dur
+        elif ts + dur > end:
+            busy += ts + dur - end
+            end = ts + dur
+    return busy
+
+
+def profile_one(torch, prove_once):
+    """(wall seconds, busy seconds, {kernel name: (launches, ms)}) of one
+    prove under torch.profiler, from the exported trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        prove_once()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            trace = json.load(fh)
+    kernels, spans = {}, []
+    for ev in trace["traceEvents"]:
+        if ev.get("ph") != "X" or ev.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        spans.append((ev["ts"], ev["dur"]))
+        name = ev["name"].split("<")[0].split("(")[0][:60] if ev["cat"] == "kernel" else ev["cat"]
+        if "k_add" in ev["name"]:  # the curve kernels: keep the group
+            name = ("k_add_mixed" if "k_add_mixed" in ev["name"] else "k_add") + (
+                "<G2F>" if "G2F" in ev["name"] else "<G1F>"
+            )
+        n, ms = kernels.get(name, (0, 0.0))
+        kernels[name] = (n + 1, ms + ev["dur"] / 1e3)
+    return wall, merged_busy_us(spans) / 1e6, kernels
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--curves", default="bw6-761,bls12-377,bls12-381,bn254")
+    ap.add_argument("--proves", type=int, default=4)
+    ap.add_argument("--log2n", type=int, default=chip_smoke.LOG2_CONSTRAINTS)
+    args = ap.parse_args()
+    torch, card = chip_smoke.phase_card()
+    from tpusnark_torch import kernels
+    from tpusnark_torch.backend.groth16 import prove, setup
+    from tpusnark_torch.curves.config import get_curve
+
+    chip_smoke.phase_build()
+    dev = torch.device("cuda")
+    for curve in args.curves.split(","):
+        cs, assign = chip_smoke.mul_chain(args.log2n, get_curve(curve).host.R)
+        rng = random.Random(chip_smoke.SEED)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        pk, _ = setup(cs, rng=lambda: rng.randrange(1, cs.modulus), device=dev, curve=curve)
+        print(f"[{card}] {curve} setup {time.perf_counter() - t0:.4f} s", flush=True)
+        prng = random.Random(chip_smoke.SEED + 1)
+
+        def prove_once(timings=None):
+            return prove(cs, pk, assign, rng=lambda: prng.randrange(cs.modulus), timings=timings, device=dev)
+
+        for i in range(args.proves):
+            phases: dict = {}
+            t0 = time.perf_counter()
+            prove_once(phases)
+            total = time.perf_counter() - t0
+            print(
+                f"[{card}] {curve} prove {i + 1} total={total:.4f} "
+                + " ".join(f"{k}={v:.4f}" for k, v in phases.items()),
+                flush=True,
+            )
+        kernels.reset_launches()
+        wall, busy, by_kernel = profile_one(torch, prove_once)
+        launched = sum(kernels.LAUNCHES.values())
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        print(
+            f"[{card}] {curve} profiled prove wall={wall:.4f} s device busy={busy:.4f} s "
+            f"idle share={1 - busy / wall:.4f} device events={sum(n for n, _ in by_kernel.values())} "
+            f"port kernel launches={launched} peak memory={peak:.3f} GB",
+            flush=True,
+        )
+        for name, (n, ms) in sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:12]:
+            print(f"[{card}] {curve}   {name:60s} launches={n:6d} ms={ms:.3f}", flush=True)
+        del pk
+        torch.cuda.empty_cache()
+
+
+if __name__ == "__main__":
+    main()

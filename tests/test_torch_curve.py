@@ -1,8 +1,10 @@
 """The port's group law (tpusnark_torch.curves.tcurve, plain versions on the
 CPU) against tpusnark's CurveOps (JAX on the CPU) and the curve's host module
-(tpusnark.curves.ref for BN254, tpusnark.curves.bls12381 for BLS12-381: G1
-with 3b = 12, G2 with 3b' = (12, 12) over u^2 = -1), on the same seeded
-points. Exact: projective outputs are compared with tpusnark's coordinate
+(tpusnark.curves.ref for BN254; tpusnark.curves.bls12381 for BLS12-381: G1
+with 3b = 12, G2 with 3b' = (12, 12) over u^2 = -1; tpusnark.curves.bls12377
+for BLS12-377: G1 with 3b = 3, G2 with 3b' = (0, -3/5) over u^2 = -5;
+tpusnark.curves.bw6761 for BW6-761: 24-word coordinates, G1 with 3b = -3 and
+G2 over Fp itself with 3b = 12), on the same seeded points. Exact: projective outputs are compared with tpusnark's coordinate
 by coordinate as ints mod p, and their affine values with the host module."""
 
 import numpy as np
@@ -24,10 +26,12 @@ from tpusnark_torch.curves.encoding import (
     g2_from_device_proj,
     g2_to_device,
 )
-from tpusnark_torch.curves.tcurve import curve_ops, g1_ops
+from tpusnark_torch.curves.tcurve import curve_ops, g1_ops, g2_ops
 from tpusnark_torch.fields.tfield import get_field
 
-CURVES = ("bn254", "bls12-381")
+torch.set_num_threads(1)  # the suite's workers fill the cores already
+
+CURVES = ("bn254", "bls12-381", "bls12-377", "bw6-761")
 CASES = [(c, g) for c in CURVES for g in ("g1", "g2")]
 
 
@@ -37,15 +41,19 @@ class Curve:
 
     def __init__(self, name, group):
         cfg = get_curve(name)
-        self.cfg, self.g2 = cfg, group == "g2"
+        # g2: coordinates in Fp2; BW6-761's G2 lies over Fp and takes the
+        # G1 layout, encoders and formulas with b = g2_b
+        self.cfg, self.g2 = cfg, group == "g2" and not cfg.g2_over_fp
         self.host = cfg.host
-        self.G = cfg.host.G2 if self.g2 else cfg.host.G1
+        self.G = cfg.host.G2 if group == "g2" else cfg.host.G1
         self.P, self.R = cfg.fp_spec.modulus, cfg.host.R
         self.fp, self.jfp = get_field(cfg.fp_spec), JField(cfg.fp_spec)
-        self.ops = curve_ops(name)[int(self.g2)]
-        self.jops = (
-            jg2_ops(self.jfp, b3=cfg.g2_b3, q=cfg.fp2_q) if self.g2 else jg1_ops(self.jfp, b=cfg.g1_b)
-        )
+        self.ops = curve_ops(name)[int(group == "g2")]
+        assert self.ops.group == group and self.ops.fp2 == self.g2
+        if self.g2:
+            self.jops = jg2_ops(self.jfp, b3=cfg.g2_b3, q=cfg.fp2_q)
+        else:
+            self.jops = jg1_ops(self.jfp, b=cfg.g2_b if group == "g2" else cfg.g1_b)
 
     def enc(self, pts):
         return (g2_to_device if self.g2 else g1_to_device)(pts, self.fp)
@@ -71,7 +79,7 @@ def lanes(C, seed):
     a, b, c, d = rand(), rand(), rand(), rand()
     ps = [None, a, b, c] + [rand() for _ in range(4)]
     qs = [d, a, G.neg(b), None] + [rand() for _ in range(4)]
-    lam = [int.from_bytes(rng.bytes(48), "little") % (C.P - 1) + 1 for _ in ps]
+    lam = [int.from_bytes(rng.bytes(96), "little") % (C.P - 1) + 1 for _ in ps]
     return ps, qs, lam
 
 
@@ -191,7 +199,15 @@ def test_g2_decode_returns_the_curves_own_fp2():
 
 def test_kernel_ops_refuse_constants_their_kernels_are_not_built_for():
     """The BN254 G1 kernel has 3b = 9 built in (an add chain); ops over
-    BN254's Fp with another b cannot reach it."""
+    BN254's Fp with another b cannot reach it. BLS12-377's G2 kernels are
+    built for u^2 = -5, and only BW6-761 has a G2 over Fp."""
     fp = get_field(BN254_FP)
     with pytest.raises(ValueError, match="3b = 9"):
         g1_ops(fp, b=4)
+    cfg = get_curve("bls12-377")
+    with pytest.raises(ValueError, match="q = 5"):
+        g2_ops(get_field(cfg.fp_spec), cfg.g2_b3, q=1)
+    with pytest.raises(ValueError, match="bls12-377 g2 kernels are not over FpArith"):
+        g1_ops(get_field(cfg.fp_spec), b=4, group="g2")
+    bw6 = get_curve("bw6-761")
+    assert g1_ops(get_field(bw6.fp_spec), b=bw6.g2_b, group="g2").group == "g2"

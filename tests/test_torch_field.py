@@ -1,10 +1,12 @@
 """The port's field arithmetic (tpusnark_torch.fields.tfield, plain versions
 on the CPU) against tpusnark's Field (JAX on the CPU) and Python ints, on
-the same seeded inputs, for the four fields with kernels: BN254 fr and fp
-(8 words), BLS12-381 fr (9 words; its R = 2^288 is not tpusnark's 2^272)
-and BLS12-381 fp (12 words). Exact: values are compared as ints mod p. Also
-the constants of csrc/mont.cuh against FieldSpec, the R of 17-limb specs
-across convert.py, and the wrappers' refusals."""
+the same seeded inputs, for the eight fields with kernels: BN254 fr and fp
+and BLS12-377 fr (8 words), BLS12-381 fr (9 words; its R = 2^288 is not
+tpusnark's 2^272), BLS12-381 fp, BLS12-377 fp and BW6-761 fr (12 words) and
+BW6-761 fp (24 words, where a product has 48 word rows of carries). Exact:
+values are compared as ints mod p. Also the constants of csrc/mont.cuh
+against FieldSpec, the R of 17-limb specs across convert.py, and the
+wrappers' refusals."""
 
 import re
 from pathlib import Path
@@ -17,16 +19,35 @@ import torch
 from tpusnark.fields.jfield import Field as JField
 from tpusnark.fields.spec import (
     BLS12_377_FP,
+    BLS12_377_FR,
     BLS12_381_FP,
     BLS12_381_FR,
     BN254_FP,
     BN254_FR,
+    BW6_633_FP,
+    BW6_761_FP,
+    BW6_761_FR,
 )
 from tpusnark_torch import kernels
 from tpusnark_torch.convert import from_torch, limbs_to_words, to_torch, words_to_limbs
+from tpusnark_torch.fields import tfield
 from tpusnark_torch.fields.tfield import Field, n_words
 
-SPECS = {s.name: s for s in (BN254_FR, BN254_FP, BLS12_381_FR, BLS12_381_FP)}
+torch.set_num_threads(1)  # the suite's workers fill the cores already
+
+SPECS = {
+    s.name: s
+    for s in (
+        BN254_FR,
+        BN254_FP,
+        BLS12_381_FR,
+        BLS12_381_FP,
+        BLS12_377_FR,
+        BLS12_377_FP,
+        BW6_761_FR,
+        BW6_761_FP,
+    )
+}
 N = 48
 
 
@@ -198,6 +219,64 @@ def test_17_limb_montgomery_radix_is_re_encoded():
     assert f.decode(wrong)[1:] != xs[1:]
 
 
+def _word_rows(vals, rows):
+    """Integers -> (rows, N) int64 words, as the plain versions hold them."""
+    return torch.tensor([[(v >> (32 * k)) & 0xFFFFFFFF for v in vals] for k in range(rows)], dtype=torch.int64)
+
+
+def _rows_value(w, i):
+    return sum(int(w[k, i]) << (32 * k) for k in range(w.shape[0]))
+
+
+def test_24_word_products_with_long_carry_ripples_equal_python_ints():
+    """BW6-761's fp has 24 words, so a product has 48 word rows. A carry
+    resolution that weighs rows by 3^j in int64 is sound up to 39 rows and
+    overflows here; operands whose carries ripple across more rows than that
+    ((p - 1)^2, 2^k - 1 patterns) must still equal Python's integers."""
+    spec = BW6_761_FP
+    f = Field(spec)
+    assert f.n == 24 and tfield.MAX_WORDS >= 24
+    p, rinv = spec.modulus, f.r_inv
+    ones = [(1 << k) - 1 for k in (760, 761, 736, 700)]  # 2^k - 1 < 2p: runs of full words
+    xs = [p - 1, 2 * p - 1, p - 1, 1, *ones, (1 << 761) - (1 << 31), 0]
+    ys = [p - 1, 2 * p - 1, 2 * p - 1, 2 * p - 1, *ones[::-1], (1 << 32) + 1, 2 * p - 1]
+    assert max(xs + ys) < 2 * p
+    a, b = to_words(xs, 24), to_words(ys, 24)
+    assert f.decode(f.mul(a, b)) == [x * y * rinv * rinv % p for x, y in zip(xs, ys)]
+    assert f.decode(f.add(a, b)) == [(x + y) * rinv % p for x, y in zip(xs, ys)]
+    assert f.decode(f.sub(a, b)) == [(x - y) * rinv % p for x, y in zip(xs, ys)]
+    assert f.decode(f.from_mont(a), mont=False) == [x * rinv % p for x in xs]
+    assert max(word_ints(f.mul(a, b))) < 2 * p
+    # the carry resolution itself on 48 rows: a carry (and a borrow) that
+    # enters at the bottom and ripples through every row, and one that dies
+    full = (1 << (32 * 48)) - 1
+    vals = [full, full - (1 << 32 * 40), 1 << (32 * 47), 12345]
+    cols = _word_rows(vals, 48)
+    cols[0] += 1  # + 1: every word of `full` carries into the next
+    words, carry = tfield._normalize(cols)
+    for i, v in enumerate(vals):
+        assert _rows_value(words, i) + (int(carry[i]) << (32 * 48)) == v + 1
+    zero_rows = torch.zeros_like(cols)
+    diff, borrow = tfield._sub_words(zero_rows, _word_rows([1, 0, 1 << (32 * 47), full], 48))
+    assert borrow.tolist() == [True, False, True, True]
+    assert [_rows_value(diff, i) for i in range(4)] == [full, 0, full + 1 - (1 << (32 * 47)), 1]
+
+
+@pytest.mark.parametrize("rows", [16, 24, 39, 40, 48])
+def test_carry_resolution_agrees_on_both_sides_of_39_rows(rows):
+    """_lex_prefix is one log-step scan at every row count (weights of 3^j in
+    int64 were sound only up to 39 rows): random columns with planted runs
+    of 2^32 - 1 normalise to the integer they hold on either side of 39."""
+    rng = np.random.default_rng(rows)
+    cols = torch.from_numpy(rng.integers(0, 1 << 40, size=(rows, 64), dtype=np.int64))
+    cols[2 : rows - 1, :32] = 0xFFFFFFFF  # long runs that pass a carry on
+    cols[1, :16] = 1 << 32  # ... and a carry to pass
+    want = [sum(int(cols[k, i]) << (32 * k) for k in range(rows)) for i in range(64)]
+    words, carry = tfield._normalize(cols)
+    assert int(words.max()) <= 0xFFFFFFFF and int(words.min()) >= 0
+    assert [_rows_value(words, i) + (int(carry[i]) << (32 * rows)) for i in range(64)] == want
+
+
 def _header_fields():
     """{id: (name, words, p words, 2p words, inv)} parsed from mont.cuh."""
     text = (Path(kernels.CSRC) / "mont.cuh").read_text()
@@ -237,7 +316,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     """The CUDA wrappers take only CUDA tensors; the Field sends CPU
     tensors to the plain versions and never to a wrapper."""
     before = dict(kernels.LAUNCHES)
-    for spec in (BN254_FR, BLS12_381_FR):
+    for spec in (BN254_FR, BLS12_381_FR, BLS12_377_FR, BW6_761_FR):
         a = torch.zeros((n_words(spec), 4), dtype=torch.int32)
         with pytest.raises(ValueError, match="CUDA tensor"):
             kernels.field_binary("mul", spec, a, a)
@@ -247,12 +326,15 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     g = torch.zeros((12, 4), dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.curve_op("add", False, BLS12_381_FP, [g] * 6, [0] * 12)
+    g = torch.zeros((24, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensor"):  # G2 over Fp: 6 components, 24 words of 3b
+        kernels.curve_op("add", True, BW6_761_FP, [g] * 6, [0] * 24)
     assert kernels.LAUNCHES == before
 
 
 def test_kernels_refuse_fields_and_ops_without_kernels(monkeypatch):
     """A spec or op without a kernel is refused before any build, so this
-    runs without nvcc: BLS12-377's fields, neg of a scalar field, NTT
+    runs without nvcc: BW6-633's fields, neg of a scalar field, NTT
     butterflies over a base field, the curve kernels over another field."""
 
     def no_build():
@@ -260,14 +342,31 @@ def test_kernels_refuse_fields_and_ops_without_kernels(monkeypatch):
 
     monkeypatch.setattr(kernels, "build", no_build)
     a = torch.zeros((12, 4), dtype=torch.int32)
-    with pytest.raises(ValueError, match="no CUDA kernels for field bls12_377_fp"):
-        kernels.field_binary("mul", BLS12_377_FP, a, a)
-    with pytest.raises(ValueError, match="no CUDA kernels for field bls12_377_fp"):
-        kernels.field_unary("from_mont", BLS12_377_FP, a)
+    w = torch.zeros((20, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="no CUDA kernels for field bw6_633_fp"):
+        kernels.field_binary("mul", BW6_633_FP, w, w)
+    with pytest.raises(ValueError, match="no CUDA kernels for field bw6_633_fp"):
+        kernels.field_unary("from_mont", BW6_633_FP, w)
+    with pytest.raises(ValueError, match="no CUDA kernel neg for field bls12_377_fr"):
+        kernels.field_unary("neg", BLS12_377_FR, a[:8])
     with pytest.raises(ValueError, match="no CUDA kernel neg for field bls12_381_fr"):
         kernels.field_unary("neg", BLS12_381_FR, a[:9])
+    # a base field adds and subtracts only in an Fp2 inversion: none over BW6-761's
+    g = torch.zeros((24, 4), dtype=torch.int32)
+    for op in ("add", "sub"):
+        with pytest.raises(ValueError, match=f"no CUDA kernel {op} for field bw6_761_fp"):
+            kernels.field_binary(op, BW6_761_FP, g, g)
+        assert f"{op}[bw6_761_fp]" not in kernels.LAUNCHES and f"{op}[bls12_377_fp]" in kernels.LAUNCHES
+    assert set(kernels.LAUNCHES) == {k for c in kernels.CURVES for k in kernels.instances(c)}
     with pytest.raises(ValueError, match="no NTT kernels"):
         kernels.butterfly(BLS12_381_FP, a, a, a)
-    with pytest.raises(ValueError, match="no CUDA curve kernels over bls12_377_fp"):
-        kernels.curve_op("add", True, BLS12_377_FP, [a] * 12, [0] * 24)
-    assert kernels.curve_of(BLS12_381_FP) == "bls12-381" and kernels.curve_of(BLS12_377_FP) is None
+    with pytest.raises(ValueError, match="no NTT kernels"):
+        kernels.butterfly(BW6_761_FP, w, w, w)
+    with pytest.raises(ValueError, match="no CUDA curve kernels over bw6_633_fp"):
+        kernels.curve_op("add", True, BW6_633_FP, [w] * 6, [0] * 20)
+    with pytest.raises(ValueError, match="expected 12 coordinate components"):  # G2 over Fp2
+        kernels.curve_op("add", True, BLS12_377_FP, [a] * 6, [0] * 24)
+    with pytest.raises(ValueError, match="expected 6 coordinate components"):  # G2 over Fp
+        kernels.curve_op("add", True, BW6_761_FP, [w] * 12, [0] * 48)
+    assert kernels.curve_of(BLS12_381_FP) == "bls12-381" and kernels.curve_of(BW6_633_FP) is None
+    assert kernels.curve_of(BLS12_377_FP) == "bls12-377" and kernels.curve_of(BW6_761_FP) == "bw6-761"

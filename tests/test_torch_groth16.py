@@ -1,39 +1,54 @@
-"""Groth16 over BN254 and BLS12-381 through the port
+"""Groth16 over BN254, BLS12-381 and BLS12-377 through the port
 (tpusnark_torch.backend.groth16, plain versions on the CPU) against tpusnark
 (host setup, JAX prover on the CPU) on the cubic circuit of
 tests/test_groth16.py over each curve's r, with the same seeded setup and
-prove rngs. Exact: keys and proofs are compared point for point, device
-vectors as ints mod p. tpusnark's host verifier checks every proof, and for
-BLS12-381 also ``bls381.verify`` (checked against bellman's fixtures)."""
+prove rngs. Each side builds the circuit with its own builder and solves it
+with its own solver. Exact: keys and proofs are compared point for point
+(the containers are each package's own dataclasses, compared field by
+field), device vectors as ints mod p. Both packages' host verifiers check
+every proof, and for BLS12-381 also both ``bls381.verify`` (checked against
+bellman's fixtures). BW6-761 is in tests/test_torch_groth16_bw6.py."""
 
+import dataclasses
+import inspect
 import random
+from importlib import import_module
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from tpusnark.backend import groth16 as jg16
+from tpusnark.backend.groth16 import bls381 as jbls381
 from tpusnark.backend.groth16.prove import _abc_eval
 from tpusnark.backend.groth16.prove import compute_h_dev as jax_compute_h
 from tpusnark.constraint.solver import solve
 from tpusnark.curves.config import get_curve
 from tpusnark.fields.jfield import Field as JField
 from tpusnark.frontend.builder import Builder
-from tpusnark_torch import _host
 from tpusnark_torch.backend import groth16 as tg16
+from tpusnark_torch.backend.groth16 import bls381 as tbls381
 from tpusnark_torch.backend.groth16.keys import device_tables
+from tpusnark_torch.constraint.solver import solve as tsolve
 from tpusnark_torch.constraint.eval_torch import abc_evaluator
 from tpusnark_torch.convert import pk_tables, to_torch
 from tpusnark_torch.fields.tfield import get_field, n_words
+from tpusnark_torch.frontend.builder import Builder as TBuilder
+
+torch.set_num_threads(1)  # the suite's workers fill the cores already
+
+jverify = import_module("tpusnark.backend.groth16.verify")  # the package's `verify` is the function
 
 ASSIGN = {"x": 3, "y": 35}
 PK_FIELDS = ("alpha_g1", "beta_g1", "delta_g1", "beta_g2", "delta_g2", "a", "b1", "b2", "k", "z")
 VK_FIELDS = ("alpha_g1", "beta_g2", "gamma_g2", "delta_g2", "k", "beta_g1", "delta_g1")
 
 
-def cubic_circuit(r):
-    """x**3 + x + 5 == y over the field of r (tests/test_groth16.py)."""
-    b = Builder(r)
+def cubic_circuit(r, builder=Builder):
+    """x**3 + x + 5 == y over the field of r (tests/test_groth16.py), built
+    with tpusnark's builder or the port's."""
+    b = builder(r)
     x = b.secret("x")
     y = b.public("y")
     b.assert_is_equal(b.add(b.mul(x, x, x), x, 5), y)
@@ -46,34 +61,48 @@ def seeded(seed, r, lo=1):
 
 
 def verifiers(curve):
-    """The host verifiers of the curve: name -> verify(proof, vk, pubs)."""
-    out = {"verify": lambda proof, vk, pubs: _host.verify.verify(proof, vk, pubs, curve=curve)}
+    """The host verifiers of the curve, the port's and tpusnark's: name ->
+    verify(proof, vk, pubs)."""
+    out = {
+        "port verify": lambda proof, vk, pubs: tg16.verify(proof, vk, pubs, curve=curve),
+        "tpusnark verify": lambda proof, vk, pubs: jverify.verify(proof, vk, pubs, curve=curve),
+    }
     if curve == "bls12-381":
-        B = _host.bls381
 
-        def bls(proof, vk, pubs):
-            vkb = B.VerifyingKeyBLS(
-                alpha_g1=vk.alpha_g1,
-                beta_g1=vk.beta_g1,
-                beta_g2=vk.beta_g2,
-                gamma_g2=vk.gamma_g2,
-                delta_g1=vk.delta_g1,
-                delta_g2=vk.delta_g2,
-                k=vk.k,
-            )
-            return B.verify(B.ProofBLS(ar=proof.ar, bs=proof.bs, krs=proof.krs), vkb, pubs)
+        def bls(B):
+            def run(proof, vk, pubs):
+                vkb = B.VerifyingKeyBLS(
+                    alpha_g1=vk.alpha_g1,
+                    beta_g1=vk.beta_g1,
+                    beta_g2=vk.beta_g2,
+                    gamma_g2=vk.gamma_g2,
+                    delta_g1=vk.delta_g1,
+                    delta_g2=vk.delta_g2,
+                    k=vk.k,
+                )
+                return B.verify(B.ProofBLS(ar=proof.ar, bs=proof.bs, krs=proof.krs), vkb, pubs)
 
-        out["bls381.verify"] = bls
+            return run
+
+        out["port bls381.verify"] = bls(tbls381)
+        out["tpusnark bls381.verify"] = bls(jbls381)
     return out
 
 
-@pytest.fixture(scope="module", params=("bn254", "bls12-381"))
+class Circuits:
+    """The same circuit from each package's builder."""
+
+    def __init__(self, r):
+        self.port, self.jax = cubic_circuit(r, TBuilder), cubic_circuit(r, Builder)
+
+
+@pytest.fixture(scope="module", params=("bn254", "bls12-381", "bls12-377"))
 def keys(request):
     curve = request.param
     cfg = get_curve(curve)
-    cs = cubic_circuit(cfg.host.R)
-    pk_t, vk_t = tg16.setup(cs, rng=seeded(42, cfg.host.R), curve=curve)
-    pk_j, vk_j = jg16.setup(cs, rng=seeded(42, cfg.host.R), use_device=False, curve=curve)
+    cs = Circuits(cfg.host.R)
+    pk_t, vk_t = tg16.setup(cs.port, rng=seeded(42, cfg.host.R), device="cpu", curve=curve)
+    pk_j, vk_j = jg16.setup(cs.jax, rng=seeded(42, cfg.host.R), use_device=False, curve=curve)
     return cfg, cs, pk_t, vk_t, pk_j, vk_j
 
 
@@ -84,8 +113,16 @@ def test_setup_matches_tpusnark_point_for_point(keys):
     for name in VK_FIELDS:
         assert getattr(vk_t, name) == getattr(vk_j, name), name
     assert (pk_t.curve, pk_t.domain_n, pk_t.k_wires) == (cfg.name, pk_j.domain_n, pk_j.k_wires)
-    assert isinstance(pk_t, jg16.ProvingKey)
-    assert all(type(c) is cfg.host.Fp2 for c in vk_t.delta_g2)
+    assert (pk_t.commitment_keys, vk_t.commitment_key, vk_t.public_and_commitment_committed) == ([], None, [])
+    # the containers are the port's own dataclasses, with tpusnark's fields
+    assert type(pk_t) is tg16.ProvingKey and type(pk_t) is not jg16.ProvingKey
+    assert type(vk_t) is tg16.VerifyingKey and type(vk_t) is not jg16.VerifyingKey
+    for ours, theirs in ((pk_t, pk_j), (vk_t, vk_j)):
+        assert [f.name for f in dataclasses.fields(ours)] == [f.name for f in dataclasses.fields(theirs)]
+    # G2 coordinates are the port's copy of the curve's host Fp2 class
+    port_fp2 = import_module(cfg.host.__name__.replace("tpusnark.", "tpusnark_torch.")).Fp2
+    assert all(type(c) is port_fp2 for c in vk_t.delta_g2)
+    assert [(c.c0, c.c1) for c in vk_t.delta_g2] == [(c.c0, c.c1) for c in vk_j.delta_g2]
 
 
 def test_setup_tables_equal_tpusnark_device_tables(keys):
@@ -113,9 +150,10 @@ def test_abc_and_compute_h_match_tpusnark(keys):
     cfg, cs, pk_t, _, _, _ = keys
     spec = cfg.fr_spec
     fr, jfr = get_field(spec), JField(spec)
-    W = solve(cs, ASSIGN)
-    A, B, C = abc_evaluator(cs, fr, "cpu")(fr.encode(W))
-    jA, jB, jC = _abc_eval(cs, jfr)(jnp.asarray(spec.encode(W, mont=True).T.copy()))
+    W = tsolve(cs.port, ASSIGN)
+    assert W == solve(cs.jax, ASSIGN)
+    A, B, C = abc_evaluator(cs.port, fr, "cpu")(fr.encode(W))
+    jA, jB, jC = _abc_eval(cs.jax, jfr)(jnp.asarray(spec.encode(W, mont=True).T.copy()))
     for got, want in zip((A, B, C), (jA, jB, jC)):
         assert fr.decode(got) == jfr.to_ints(want)
     n = pk_t.domain_n
@@ -132,9 +170,11 @@ def test_proof_matches_tpusnark_and_verifies(keys):
     cfg, cs, pk_t, vk_t, pk_j, _ = keys
     r = cfg.host.R
     timings = {}
-    proof = tg16.prove(cs, pk_t, ASSIGN, rng=seeded(7, r, lo=0), timings=timings)
-    want = jg16.prove(cs, pk_j, ASSIGN, rng=seeded(7, r, lo=0))
+    proof = tg16.prove(cs.port, pk_t, ASSIGN, rng=seeded(7, r, lo=0), timings=timings, device="cpu")
+    want = jg16.prove(cs.jax, pk_j, ASSIGN, rng=seeded(7, r, lo=0))
+    assert type(proof) is tg16.Proof
     assert (proof.ar, proof.bs, proof.krs) == (want.ar, want.bs, want.krs)
+    assert (proof.commitments, proof.commitment_pok) == (want.commitments, want.commitment_pok)
     assert set(timings) == {"solve", "encode", "h", "msm", "assemble"}
     for name, verify in verifiers(cfg.name).items():
         assert verify(proof, vk_t, [35]), name
@@ -144,26 +184,43 @@ def test_proof_matches_tpusnark_and_verifies(keys):
 def test_commitment_circuits_are_refused(keys):
     """BSB22 commitments are not ported: setup and prove refuse them."""
     cfg, _, pk_t, _, _, _ = keys
-    b = Builder(cfg.host.R)
+    b = TBuilder(cfg.host.R)
     x = b.secret("x")
     y = b.public("y")
     c = b.commit(x)
     b.assert_is_equal(b.add(b.mul(x, x), c, 0), b.add(y, c))
     cs = b.compile()
     with pytest.raises(NotImplementedError):
-        tg16.setup(cs, rng=seeded(1, cfg.host.R), curve=cfg.name)
+        tg16.setup(cs, rng=seeded(1, cfg.host.R), device="cpu", curve=cfg.name)
     with pytest.raises(NotImplementedError):
-        tg16.prove(cs, pk_t, {"x": 2, "y": 4})
+        tg16.prove(cs, pk_t, {"x": 2, "y": 4}, device="cpu")
 
 
-@pytest.mark.parametrize("curve", ("bls12-377", "bw6-761"))
+@pytest.mark.parametrize("curve", ("bw6-633", "bls24-315"))
 def test_curves_without_kernels_are_refused(curve):
     """setup and prove refuse a curve whose kernels are not ported, before
     any work, with NotImplementedError."""
-    cs = cubic_circuit(get_curve(curve).host.R)
+    cs = cubic_circuit(get_curve(curve).host.R, TBuilder)
     with pytest.raises(NotImplementedError, match=f"curve {curve}: its kernels are not ported"):
-        tg16.setup(cs, rng=seeded(1, cs.modulus), curve=curve)
-    pk = jg16.ProvingKey.__new__(jg16.ProvingKey)
+        tg16.setup(cs, rng=seeded(1, cs.modulus), device="cpu", curve=curve)
+    pk = tg16.ProvingKey.__new__(tg16.ProvingKey)
     pk.curve = curve
     with pytest.raises(NotImplementedError, match=f"curve {curve}"):
+        tg16.prove(cs, pk, ASSIGN, device="cpu")
+
+
+@pytest.mark.parametrize("curve", ("bn254", "bw6-761"))
+def test_entry_points_run_on_the_card_unless_the_caller_names_the_cpu(curve):
+    """setup and prove default to device="cuda": with no card they raise and
+    do not fall back to the plain versions."""
+    for fn in (tg16.setup, tg16.prove):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the default runs there")
+    cs = cubic_circuit(get_curve(curve).host.R, TBuilder)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        tg16.setup(cs, rng=seeded(1, cs.modulus), curve=curve)
+    pk = tg16.ProvingKey.__new__(tg16.ProvingKey)
+    pk.curve = curve
+    with pytest.raises(RuntimeError, match="no CUDA card"):
         tg16.prove(cs, pk, ASSIGN)

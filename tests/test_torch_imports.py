@@ -1,9 +1,11 @@
-"""The port runs where JAX is not installed: every module of tpusnark_torch,
-tpusnark's host modules it loads through ``_host``, and chip_smoke.py import
-in a process where ``import jax`` fails. chip_smoke.py exits non-zero, with
-no result line, where there is no CUDA device and where it stands alone."""
+"""The port stands alone: every module of tpusnark_torch and chip_smoke.py
+import, and a tiny Groth16 setup and prove run per curve family (G2 over
+Fp2; G2 over Fp), in a process where neither ``jax`` nor the JAX package
+``tpusnark`` can be imported. chip_smoke.py exits non-zero, with no result
+line, where there is no CUDA device and where it stands alone."""
 
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -11,74 +13,141 @@ import textwrap
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-NO_JAX = textwrap.dedent(
+# any import of jax or of tpusnark raises ImportError from here on
+BLOCK = textwrap.dedent(
     """
-    import importlib, pkgutil, sys
-    sys.modules["jax"] = None  # any import of jax now raises ImportError
+    import sys
+    sys.modules["jax"] = None
+    sys.modules["tpusnark"] = None
     sys.path.insert(0, {root!r})
+    """
+)
+
+IMPORT_ALL = BLOCK + textwrap.dedent(
+    """
+    import importlib, pkgutil
     import tpusnark_torch
     names = [m.name for m in pkgutil.walk_packages(tpusnark_torch.__path__, "tpusnark_torch.")]
     for name in names:
         importlib.import_module(name)
-    from tpusnark_torch import _host
-    from tpusnark_torch.backend.groth16 import prove, setup
+    from tpusnark_torch.backend.groth16 import prove, setup, verify
     import chip_smoke
-    assert _host.verify.verify and _host.setup.k_pk_wires_for
-    assert "tpusnark_torch.backend.groth16.prove" in names
-    assert sys.modules["jax"] is None
+    for name in ("backend.groth16.prove", "backend.groth16.verify", "backend.groth16.bls381",
+                 "curves.ref", "curves.bls12381", "curves.bls12377", "curves.bw6761",
+                 "constraint.solver", "frontend.builder", "fields.spec", "poly.domain"):
+        assert "tpusnark_torch." + name in names, name
+    assert "tpusnark_torch._host" not in names
+    assert sys.modules["jax"] is None and sys.modules["tpusnark"] is None
+    assert not [m for m in sys.modules if m.startswith(("jax.", "tpusnark."))]
     print("imported", len(names))
     """
 )
 
-# The BLS12-381 path at a tiny size: its host modules load lazily
-# (CurveConfig.host, bls381), so they are reached by running the path.
-NO_JAX_BLS = textwrap.dedent(
+# One curve's path at a tiny size: curve ops, MSM, NTT, then (where `groth16`
+# says so) setup, prove and (where `verify` says so) the port's verifier,
+# through the entry points.
+PATH = BLOCK + textwrap.dedent(
     """
-    import sys
-    sys.modules["jax"] = None
-    sys.path.insert(0, {root!r})
-    from tpusnark.curves.config import get_curve
-    from tpusnark_torch import _host
-    from tpusnark_torch.curves.encoding import g1_to_device, g2_from_device_proj, g2_to_device
+    import random
+    from tpusnark_torch.backend.groth16 import InvalidProofError, prove, setup, verify
+    from tpusnark_torch.curves.config import get_curve
+    from tpusnark_torch.curves.encoding import g1_from_device_proj, g1_to_device
     from tpusnark_torch.curves.tcurve import curve_ops
     from tpusnark_torch.fields.tfield import get_field
+    from tpusnark_torch.frontend.builder import Builder
     from tpusnark_torch.msm.pippenger import get_msm
     from tpusnark_torch.poly.ntt import get_ntt
 
-    cfg = get_curve("bls12-381")
+    curve = {curve!r}
+    cfg = get_curve(curve)
     host, fp, fr = cfg.host, get_field(cfg.fp_spec), get_field(cfg.fr_spec)
-    g1, g2 = curve_ops("bls12-381")
-    G = host.G2.generator()
-    X, Y, inf = g2_to_device([G, G], fp)
-    two = g2_from_device_proj(g2.add_mixed(g2.from_affine((X, Y, inf)), (X, Y, inf)), fp, host.Fp2, cfg.fp2_q)
-    assert two == [host.G2.add(G, G)] * 2
+    g1, g2 = curve_ops(curve)
+    assert (g1.group, g2.group, g2.fp2) == ("g1", "g2", not cfg.g2_over_fp)
     pts = [host.G1.generator(), None, host.G1.mul(host.G1.generator(), 3)]
-    out = get_msm("g1", 4, "bls12-381")(g1_to_device(pts, fp), fr.encode([5, 7, 0], mont=False))
-    assert out[0].shape[0] == 12
+    out = get_msm("g1", 4, curve)(g1_to_device(pts, fp), fr.encode([5, 7, 0], mont=False))
+    assert g1_from_device_proj(out, fp) == [host.G1.mul(host.G1.generator(), 5)]
     ntt = get_ntt(cfg.fr_spec, 8)
     assert ntt.field.decode(ntt.intt(ntt.ntt(fr.encode(list(range(8)))))) == list(range(8))
-    assert _host.bls381.verify and _host.verify.verify
-    assert sys.modules["jax"] is None
-    print("bls12-381 ok")
+
+    if not {groth16}:
+        print(curve, "ok")
+        raise SystemExit(0)
+    b = Builder(host.R)
+    x, y = b.secret("x"), b.public("y")
+    b.assert_is_equal(b.add(b.mul(x, x, x), x, 5), y)
+    cs = b.compile()
+    rng = random.Random(1)
+    pk, vk = setup(cs, rng=lambda: rng.randrange(1, host.R), device="cpu", curve=curve)
+    proof = prove(cs, pk, {{"x": 3, "y": 35}}, rng=lambda: rng.randrange(host.R), device="cpu")
+    assert host.G1.in_subgroup(proof.ar) and host.G2.in_subgroup(proof.bs)
+    if {verify}:
+        assert verify(proof, vk, [35], curve=curve)
+        assert not verify(proof, vk, [36], curve=curve)
+    else:  # the checks ahead of the pairing
+        try:
+            verify(proof, vk, [35, 36], curve=curve)
+            raise SystemExit("a wrong count of public inputs passed")
+        except InvalidProofError:
+            pass
+    assert sys.modules["jax"] is None and sys.modules["tpusnark"] is None
+    print(curve, "ok")
     """
 )
 
 
+def _path(curve, groth16=True, verify=True):
+    return PATH.format(root=ROOT, curve=curve, groth16=groth16, verify=verify)
+
+
 def _run(args, cwd):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    return subprocess.run(args, cwd=cwd, env=env, capture_output=True, text=True, timeout=300)
+    env["OMP_NUM_THREADS"] = "1"  # the suite's workers fill the cores already
+    return subprocess.run(args, cwd=cwd, env=env, capture_output=True, text=True, timeout=900)
 
 
 def test_port_imports_without_jax():
-    res = _run([sys.executable, "-c", NO_JAX.format(root=ROOT)], ROOT)
+    res = _run([sys.executable, "-c", IMPORT_ALL.format(root=ROOT)], ROOT)
     assert res.returncode == 0, res.stderr
     assert res.stdout.startswith("imported")
 
 
+def test_fp2_g2_path_runs_without_jax_and_tpusnark():
+    """BLS12-377 (G2 over Fp2, u^2 = -5): setup, prove and the port's
+    verifier, which accepts the proof and rejects a wrong public input."""
+    res = _run([sys.executable, "-c", _path("bls12-377")], ROOT)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "bls12-377 ok"
+
+
 def test_bls12381_path_runs_without_jax():
-    res = _run([sys.executable, "-c", NO_JAX_BLS.format(root=ROOT)], ROOT)
+    """BLS12-381 (9-word scalars): curve ops, MSM and NTT; its Groth16 path
+    runs in tests/test_torch_groth16.py."""
+    res = _run([sys.executable, "-c", _path("bls12-381", groth16=False)], ROOT)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "bls12-381 ok"
+
+
+def test_fp_g2_path_runs_without_jax_and_tpusnark():
+    """BW6-761 (G2 over Fp, 24-word coordinates): setup and prove. A BW6-761
+    pairing check is four Miller loops of a minute each in Python integers,
+    so here the verifier runs as far as its checks ahead of the pairing; the
+    proof itself is verified in tests/test_torch_groth16_bw6.py and, by the
+    port's verifier, on the card by chip_smoke.py."""
+    res = _run([sys.executable, "-c", _path("bw6-761", verify=False)], ROOT)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "bw6-761 ok"
+
+
+def test_the_port_and_chip_smoke_name_no_tpusnark_import():
+    """No source line of the port or of chip_smoke.py imports tpusnark."""
+    pattern = re.compile(r"^\s*(from|import) +tpusnark(\.| |$)", re.M)
+    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    for base, _, files in os.walk(os.path.join(ROOT, "tpusnark_torch")):
+        paths += [os.path.join(base, f) for f in files if f.endswith(".py")]
+    assert len(paths) > 30
+    bad = [p for p in paths if pattern.search(open(p).read())]
+    assert not bad
+    assert not os.path.exists(os.path.join(ROOT, "tpusnark_torch", "_host.py"))
 
 
 def test_chip_smoke_fails_without_a_card():

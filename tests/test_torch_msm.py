@@ -5,20 +5,30 @@ the strip path, where the flush records go through
 ``weighted_from_records`` (the path that c = 16 takes at 2^17 points), over
 BN254; and over BLS12-381 (9-word scalars, 12-word coordinates) the strip
 path with infinity inputs and zero digits and the G2 ladder, against the
-host sum and tpusnark's get_msm(..., "bls12-381"). Exact: results are
-compared as affine points."""
+host sum and tpusnark's get_msm(..., "bls12-381"). The window digits are
+held against tpusnark's for all four curves' scalar widths (8, 9 and 12
+words). BLS12-377 and BW6-761 MSMs are in tests/test_torch_msm_2chain.py.
+Exact: results are compared as affine points."""
 
 import random
 
 import numpy as np
 import pytest
+import torch
 
-from tpusnark.curves import bls12381
+from tpusnark.curves import bls12377, bls12381, bw6761
 from tpusnark.curves import encoding as jenc
 from tpusnark.curves import ref
 from tpusnark.curves.ref import G1, G2, R
 from tpusnark.fields.jfield import Field as JField
-from tpusnark.fields.spec import BLS12_381_FP, BLS12_381_FR, BN254_FP, BN254_FR
+from tpusnark.fields.spec import (
+    BLS12_377_FR,
+    BLS12_381_FP,
+    BLS12_381_FR,
+    BN254_FP,
+    BN254_FR,
+    BW6_761_FR,
+)
 from tpusnark.msm import pippenger as jpip
 from tpusnark_torch.curves.encoding import (
     g1_from_device_proj,
@@ -35,9 +45,16 @@ from tpusnark_torch.msm.pippenger import (
     window_digits_signed,
 )
 
+torch.set_num_threads(1)  # the suite's workers fill the cores already
+
 fp, fr = get_field(BN254_FP), get_field(BN254_FR)
 jfp, jfr = JField(BN254_FP), JField(BN254_FR)
-CURVE_FIELDS = {"bn254": (BN254_FR, G1), "bls12-381": (BLS12_381_FR, bls12381.G1)}
+CURVE_FIELDS = {
+    "bn254": (BN254_FR, G1),
+    "bls12-381": (BLS12_381_FR, bls12381.G1),
+    "bls12-377": (BLS12_377_FR, bls12377.G1),
+    "bw6-761": (BW6_761_FR, bw6761.G1),
+}
 
 
 def get_msm(group, c):
@@ -172,23 +189,24 @@ def test_many_sums_two_scalar_vectors_over_shared_points(n, strip_threshold):
 @pytest.mark.parametrize("curve", sorted(CURVE_FIELDS))
 @pytest.mark.parametrize("c", [5, 11, 16])
 def test_window_digits_match_tpusnark_and_recode_the_scalar(c, curve):
-    """Normal-form scalars of 8 (BN254) and 9 (BLS12-381) words; 255-bit
-    BLS12-381 r still takes 16 windows at c = 16."""
+    """Normal-form scalars of 8 (BN254, BLS12-377), 9 (BLS12-381) and 12
+    (BW6-761) words; 255-bit BLS12-381 r still takes 16 windows at c = 16,
+    377-bit BW6-761 r takes ceil(378 / 16) = 24."""
     spec = CURVE_FIELDS[curve][0]
     r = spec.modulus
     rng = np.random.default_rng(c)
-    scs = [0, 1, r - 1] + [int.from_bytes(rng.bytes(32), "little") % r for _ in range(13)]
+    scs = [0, 1, r - 1] + [int.from_bytes(rng.bytes(48), "little") % r for _ in range(13)]
     msm = MSM(get_msm("g1", c).ops, get_field(spec), c=c)
     nw = msm.n_windows
     if c == 16:
-        assert nw == 16
+        assert nw == (24 if curve == "bw6-761" else 16)
     s_port = get_field(spec).encode(scs, mont=False)
     s_jax = JField(spec).array(scs, mont=False)
     assert np.array_equal(
-        window_digits(s_port, c, nw).numpy(), np.asarray(jpip.window_digits(s_jax, 16, c, nw))
+        window_digits(s_port, c, nw).numpy(), np.asarray(jpip.window_digits(s_jax, spec.n_limbs, c, nw))
     )
     mags, signs = window_digits_signed(s_port, c, nw)
-    jm, js = jpip.window_digits_signed(s_jax, 16, c, nw)
+    jm, js = jpip.window_digits_signed(s_jax, spec.n_limbs, c, nw)
     assert np.array_equal(mags.numpy(), np.asarray(jm))
     assert np.array_equal(signs.numpy(), np.asarray(js))
     assert int(mags.max()) <= 1 << (c - 1)
@@ -248,3 +266,4 @@ def test_bls12381_g2_ladder_matches_tpusnark_and_host_sum():
     scs[1] = 0
     got = bls_port(tmsm.get_msm("g2", 4, "bls12-381"), pts, scs, g2=True)
     assert got == bls_jax(jpip.get_msm("g2", 4, "bls12-381"), pts, scs, g2=True) == ref_sum(G, pts, scs)
+

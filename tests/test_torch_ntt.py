@@ -1,8 +1,9 @@
 """The port's NTT (tpusnark_torch.poly.ntt, plain butterflies on the CPU)
 against tpusnark's NTT (JAX on the CPU), Domain.ntt_ref / intt_ref and the
-round trip, over BN254 fr at n = 2^4 .. 2^7 and BLS12-381 fr (9 words,
-2-adicity 32) at n = 2^3 .. 2^5: even k runs radix-4 stages only, odd k ends
-on a radix-2 stage. The round trips are checked as well: a swapped radix-4
+round trip, over BN254 fr at n = 2^4 .. 2^7, BLS12-381 fr (9 words,
+2-adicity 32) at n = 2^3 .. 2^5, and BLS12-377 fr (8 words, 2-adicity 47) and
+BW6-761 fr (12 words, 2-adicity 46) at n = 2^3 and 2^4: even k runs radix-4
+stages only, odd k ends on a radix-2 stage. The round trips are checked as well: a swapped radix-4
 output in tpusnark's NTT was once caught by the round trip alone. Exact:
 values are compared as ints mod p."""
 
@@ -11,19 +12,25 @@ import numpy as np
 import pytest
 import torch
 
-from tpusnark.fields.spec import BLS12_381_FR, BN254_FR
+from tpusnark.fields.spec import BLS12_377_FR, BLS12_381_FR, BN254_FR, BW6_761_FR
 from tpusnark.poly.ntt import NTT as JNTT
 from tpusnark_torch.convert import words_to_limbs
 from tpusnark_torch.poly.ntt import get_ntt
 
-SPECS = {"bn254": BN254_FR, "bls12-381": BLS12_381_FR}
-CASES = [("bn254", n) for n in (16, 32, 64, 128)] + [("bls12-381", n) for n in (8, 16, 32)]
+torch.set_num_threads(1)  # the suite's workers fill the cores already
+
+SPECS = {"bn254": BN254_FR, "bls12-381": BLS12_381_FR, "bls12-377": BLS12_377_FR, "bw6-761": BW6_761_FR}
+CASES = (
+    [("bn254", n) for n in (16, 32, 64, 128)]
+    + [("bls12-381", n) for n in (8, 16, 32)]
+    + [(c, n) for c in ("bls12-377", "bw6-761") for n in (8, 16)]
+)
 P = BN254_FR.modulus
 
 
 def values(n, seed, p=P):
     rng = np.random.default_rng(seed)
-    return [int.from_bytes(rng.bytes(32), "little") % p for _ in range(n)]
+    return [int.from_bytes(rng.bytes(48), "little") % p for _ in range(n)]
 
 
 def both(n, spec=BN254_FR):
@@ -51,7 +58,9 @@ def test_round_trips(curve, n):
     assert f.decode(t.intt_coset(t.ntt_coset(x))) == xs
 
 
-@pytest.mark.parametrize("curve,n", [("bn254", 16), ("bn254", 128), ("bls12-381", 16)])
+@pytest.mark.parametrize(
+    "curve,n", [("bn254", 16), ("bn254", 128), ("bls12-381", 16), ("bls12-377", 8), ("bw6-761", 8)]
+)
 def test_coset_transforms_match_tpusnark(curve, n):
     spec = SPECS[curve]
     p = spec.modulus
@@ -81,7 +90,7 @@ def lazy_operands(k, n, seed, spec):
     out = []
     for _ in range(k):
         vals = [0, 1, p - 1, p, p + 1, 2 * p - 1]
-        vals += [int.from_bytes(rng.bytes(32), "little") % (2 * p) for _ in range(n - len(vals))]
+        vals += [int.from_bytes(rng.bytes(48), "little") % (2 * p) for _ in range(n - len(vals))]
         buf = b"".join(v.to_bytes(4 * words, "little") for v in vals)
         w = np.frombuffer(buf, dtype="<u4").reshape(-1, words)
         out.append(torch.from_numpy(np.ascontiguousarray(w.T).view(np.int32)))
@@ -91,8 +100,8 @@ def lazy_operands(k, n, seed, spec):
 @pytest.mark.parametrize("curve", sorted(SPECS))
 def test_butterflies_match_tpusnark_word_for_word(curve):
     """The plain versions of B3 and B4 give tpusnark's lazy representatives
-    where the two R agree (BN254), and its values mod p where they do not
-    (BLS12-381 fr: 2^288 against 2^272)."""
+    where the two R agree (BN254, BLS12-377, BW6-761), and its values mod p
+    where they do not (BLS12-381 fr: 2^288 against 2^272)."""
     spec = SPECS[curve]
     t, j = get_ntt(spec, 2), JNTT(spec, 2)
     ops = lazy_operands(7, 24, 5, spec)

@@ -1,28 +1,87 @@
-"""Device residency of Groth16 proving-key tables (counterpart of
-tpusnark/backend/groth16/keys.py:ProvingKey.device).
+"""Groth16 key and proof containers, and the device residency of the proving
+key's point tables (counterpart of tpusnark/backend/groth16/keys.py).
 
-The key containers are tpusnark's own (``Proof``, ``ProvingKey``,
-``VerifyingKey``). The port keeps its tensors in a cache of its own on the
-key object, per device, beside (not in) tpusnark's ``_dev`` cache.
+Reference shapes: ProvingKey/VerifyingKey at
+gnark/backend/groth16/bn254/setup.go:35-82 and the icicle device-resident
+variant gnark/backend/groth16/bn254/icicle/provingkey.go:11-36.
+
+Host-side points are python-int affine tuples ((x, y) | None; G2 uses the
+curve's Fp2 coordinates, or plain ints where G2 lies over Fp): the
+serializable form. The containers are the port's own copies of tpusnark's
+dataclasses, field for field. Device residency is lazy and per device: on
+the first prove the tables are encoded into word tensors and cached on the
+key object; ``setup`` installs the tables it computed on the device.
 """
 
 from __future__ import annotations
 
-from tpusnark.curves.config import get_curve
+from dataclasses import dataclass, field
 
-from ... import _host, kernels
+from ... import kernels
+from ...curves.config import get_curve
 from ...curves.encoding import g1_to_device, g2_to_device
 from ...fields.tfield import canonical_device, get_field
 
-Proof = _host.keys.Proof
-ProvingKey = _host.keys.ProvingKey
-VerifyingKey = _host.keys.VerifyingKey
 
-_ATTR = "_torch_tables"
+@dataclass
+class VerifyingKey:
+    alpha_g1: tuple
+    beta_g2: tuple
+    gamma_g2: tuple
+    delta_g2: tuple
+    k: list  # G1 points: one per public wire (index 0 = the constant wire),
+    # then one per BSB22 commitment wire (verifier-injected challenges)
+    # gnark carries G1.Beta/Delta on the VK purely for wire compatibility
+    # ("unused, here for compatibility purposes", setup.go:66, = pk.G1.Beta/
+    # Delta at setup.go:326-327); we store them so vk bytes match gnark's.
+    beta_g1: tuple | None = None
+    delta_g1: tuple | None = None
+    # BSB22 (reference verify.go:76-108): Pedersen vk + per-commitment index
+    # lists into the extended public witness for the challenge hash
+    commitment_key: object | None = None
+    public_and_commitment_committed: list = field(default_factory=list)
+
+    @property
+    def n_public(self) -> int:
+        return len(self.k)
+
+
+@dataclass
+class ProvingKey:
+    alpha_g1: tuple
+    beta_g1: tuple
+    delta_g1: tuple
+    beta_g2: tuple
+    delta_g2: tuple
+    a: list  # G1, per wire: A_w(t)
+    b1: list  # G1, per wire: B_w(t)
+    b2: list  # G2, per wire: B_w(t)
+    k: list  # G1, per uncommitted private wire: (beta*A_w+alpha*B_w+C_w)/delta
+    z: list  # G1, length n-1: t^i * Z_H(t)/delta
+    domain_n: int = 0
+    # BSB22: wire ids backing pk.k (identity when no commitments), and the
+    # Pedersen proving keys (basis = K of committed wires, setup.go:146-197)
+    k_wires: list | None = None
+    commitment_keys: list = field(default_factory=list)
+    # which curve the key was set up over (gnark's CurveID)
+    curve: str = "bn254"
+    # lazy device residency (icicle.go:31-130 analog): device -> tables
+    _dev: dict = field(default_factory=dict, repr=False)
+
+
+@dataclass
+class Proof:
+    ar: tuple  # G1
+    krs: tuple  # G1
+    bs: tuple  # G2
+    # BSB22 (reference Proof, prove.go:46-56): one Pedersen commitment per
+    # frontend Commit plus a single folded proof of knowledge
+    commitments: list = field(default_factory=list)
+    commitment_pok: tuple | None = None
 
 
 def ported_curve(name: str):
-    """tpusnark's CurveConfig of `name`, if the port has its kernels."""
+    """The CurveConfig of `name`, if the port has its kernels."""
     if name not in kernels.CURVES:
         raise NotImplementedError(
             f"curve {name}: its kernels are not ported (ported: {', '.join(kernels.CURVES)})"
@@ -30,13 +89,9 @@ def ported_curve(name: str):
     return get_curve(name)
 
 
-def _cache(pk) -> dict:
-    return pk.__dict__.setdefault(_ATTR, {})
-
-
 def set_device_tables(pk, device, tables: dict) -> None:
     """Install tables (a, b1, b2, k, z as affine (X, Y, inf)) for `device`."""
-    _cache(pk)[str(canonical_device(device))] = tables
+    pk._dev[str(canonical_device(device))] = tables
 
 
 def device_tables(pk, device) -> dict:
@@ -44,14 +99,16 @@ def device_tables(pk, device) -> dict:
     over the base field of pk's curve."""
     cfg = ported_curve(pk.curve)
     key = str(canonical_device(device))
-    cache = _cache(pk)
-    if key not in cache:
+    if key not in pk._dev:
         fp = get_field(cfg.fp_spec)
-        cache[key] = {
+        # BW6: G2 points have plain Fp coordinates (sextic twist over Fp):
+        # encode them with the G1 layout
+        enc_g2 = g1_to_device if cfg.g2_over_fp else g2_to_device
+        pk._dev[key] = {
             "a": g1_to_device(pk.a, fp, device),
             "b1": g1_to_device(pk.b1, fp, device),
-            "b2": g2_to_device(pk.b2, fp, device),
+            "b2": enc_g2(pk.b2, fp, device),
             "k": g1_to_device(pk.k, fp, device),
             "z": g1_to_device(pk.z, fp, device),
         }
-    return cache[key]
+    return pk._dev[key]

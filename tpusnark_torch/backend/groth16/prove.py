@@ -1,8 +1,8 @@
 """Groth16 prover on torch tensors (counterpart of
 tpusnark/backend/groth16/prove.py), over any curve whose kernels are ported
-(BN254 and BLS12-381); the curve is the proving key's.
+(BN254, BLS12-381, BLS12-377 and BW6-761); the curve is the proving key's.
 
-Pipeline: solve the witness on the host (``tpusnark.constraint.solver``),
+Pipeline: solve the witness on the host (``constraint/solver.py``),
 evaluate A/B/C on the device, compute the quotient H (3 INTT, 3 coset NTT,
 pointwise (a*b - c)/Z_H, 1 coset INTT, from_mont), run the five MSMs (a, b1,
 k, z on G1; b2 on G2), and assemble the proof on the host. Phase names match
@@ -17,14 +17,13 @@ import time
 
 import torch
 
-from tpusnark.backend.config import resolve
-from tpusnark.constraint.solver import solve
-
 from ...constraint.eval_torch import abc_evaluator
+from ...constraint.solver import solve
 from ...curves.encoding import g1_from_device_proj, g2_from_device_proj
-from ...fields.tfield import canonical_device, get_field
+from ...fields.tfield import compute_device, get_field
 from ...msm.pippenger import get_msm_for
 from ...poly.ntt import get_ntt
+from ..config import resolve
 from .keys import Proof, device_tables, ported_curve
 
 
@@ -49,15 +48,17 @@ def compute_h_dev(A, B, C, n: int, spec):
     return f.from_mont(h[:, : n - 1])
 
 
-def prove(cs, pk, assignment: dict, rng=None, config=None, timings: dict | None = None, device="cpu"):
-    """Groth16 proof of `assignment` for `cs` under `pk`, computed on `device`.
+def prove(cs, pk, assignment: dict, rng=None, config=None, timings: dict | None = None, device="cuda"):
+    """Groth16 proof of `assignment` for `cs` under `pk`, computed on `device`:
+    the card, unless the caller passes "cpu" (the plain versions, as the tests
+    run them).
 
     `timings`: optional dict filled with per-phase wall-clock seconds; timing
     synchronises the device between phases, so pass it only to measure."""
-    device = canonical_device(device)
     if cs.commitments:
         raise NotImplementedError("BSB22 commitments are not ported yet")
     cfg = ported_curve(pk.curve)
+    device = compute_device(device)
 
     def mark(name, t0):
         if timings is None:
@@ -101,7 +102,10 @@ def prove(cs, pk, assignment: dict, rng=None, config=None, timings: dict | None 
 
     (ar_sum,) = g1_from_device_proj(ar_raw, fp)
     (bs1_sum,) = g1_from_device_proj(bs1_raw, fp)
-    (bs2_sum,) = g2_from_device_proj(bs2_raw, fp, cfg.host.Fp2, cfg.fp2_q)
+    if cfg.g2_over_fp:  # G2 points are plain int pairs: the G1 decoder
+        (bs2_sum,) = g1_from_device_proj(bs2_raw, fp)
+    else:
+        (bs2_sum,) = g2_from_device_proj(bs2_raw, fp, cfg.host.Fp2, cfg.fp2_q)
     (krs_k_sum,) = g1_from_device_proj(krs_k, fp)
     # a 1-constraint domain has deg(H) < 0 and an empty Z table
     krs_z_sum = None if krs_z_raw is None else g1_from_device_proj(krs_z_raw, fp)[0]

@@ -1,29 +1,97 @@
 """Groth16 trusted setup with the point generation on the device
 (counterpart of tpusnark/backend/groth16/setup.py:setup, use_device=True).
 
-The scalar work is tpusnark's own host code (``_qap_eval_at_t``,
-``k_pk_wires_for``, ``_next_pow2``), in the same order of rng draws, so the
-same rng gives the same keys as tpusnark. Every key point is one lane of two
-batched fixed-base multiplications (G1 and G2, ``FixedBaseMul``). The results
-are normalised to affine on the device (one batched Fermat inversion) and
-kept there as the prover's point tables; the host copies in the returned
-``ProvingKey`` and ``VerifyingKey`` are decoded from them, as points of the
-curve's host module. Curves whose kernels are ported: BN254 and BLS12-381.
-BSB22 commitments are not ported yet.
+The scalar work is tpusnark's host code, copied (``lagrange_coeffs_at``,
+``_qap_eval_at_t``, ``k_pk_wires_for``, ``_next_pow2``), in the same order of
+rng draws, so the same rng gives the same keys as tpusnark. Every key point
+is one lane of two batched fixed-base multiplications (G1 and G2,
+``FixedBaseMul``). The results are normalised to affine on the device (one
+batched Fermat inversion) and kept there as the prover's point tables; the
+host copies in the returned ``ProvingKey`` and ``VerifyingKey`` are decoded
+from them, as points of the curve's host module. Curves whose kernels are
+ported: BN254, BLS12-381, BLS12-377 and BW6-761 (whose G2 lies over Fp: its
+points are plain int pairs). BSB22 commitments are not ported yet.
 """
 
 from __future__ import annotations
 
 import secrets
 
-from tpusnark.poly.domain import Domain
-
-from ... import _host
+from ...constraint.system import ConstraintSystem
 from ...curves.batch_mul import FixedBaseMul, g1_generator_ladder, g2_generator_ladder
 from ...curves.tcurve import curve_ops, small_mul
-from ...fields.tfield import get_field
+from ...fields.tfield import compute_device, get_field
 from ...msm.pippenger import tree_map
+from ...poly.domain import Domain
 from .keys import ProvingKey, VerifyingKey, ported_curve, set_device_tables
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
+
+
+def lagrange_coeffs_at(t: int, n: int, omega: int, p: int) -> list[int]:
+    """L_i(t) for the size-n domain: L_i(t) = omega^i (t^n - 1) / (n (t - omega^i)).
+
+    Assumes t is not in the domain (overwhelming probability for random t)."""
+    zt = (pow(t, n, p) - 1) % p
+    n_inv = pow(n, -1, p)
+    # batch-invert (t - omega^i) via Montgomery trick
+    wi = 1
+    denoms = []
+    for _ in range(n):
+        denoms.append((t - wi) % p)
+        wi = wi * omega % p
+    # prefix products
+    pref = [1] * (n + 1)
+    for i, d in enumerate(denoms):
+        pref[i + 1] = pref[i] * d % p
+    inv_all = pow(pref[n], -1, p)
+    invs = [0] * n
+    for i in range(n - 1, -1, -1):
+        invs[i] = inv_all * pref[i] % p
+        inv_all = inv_all * denoms[i] % p
+    out = [0] * n
+    wi = 1
+    base = zt * n_inv % p
+    for i in range(n):
+        out[i] = base * wi % p * invs[i] % p
+        wi = wi * omega % p
+    return out
+
+
+def _qap_eval_at_t(cs: ConstraintSystem, t: int, n: int, omega: int):
+    """Per-wire A_w(t), B_w(t), C_w(t) via one pass over constraint terms
+    (reference: setupABC, setup.go:352)."""
+    p = cs.modulus
+    L = lagrange_coeffs_at(t, n, omega, p)
+    coeffs = cs.coeffs
+    nw = cs.n_wires
+    A = [0] * nw
+    B = [0] * nw
+    C = [0] * nw
+    for i, c in enumerate(cs.constraints):
+        li = L[i]
+        for cid, vid in c.L:
+            A[vid] = (A[vid] + coeffs[cid] * li) % p
+        for cid, vid in c.R:
+            B[vid] = (B[vid] + coeffs[cid] * li) % p
+        for cid, vid in c.O:
+            C[vid] = (C[vid] + coeffs[cid] * li) % p
+    return A, B, C
+
+
+def k_pk_wires_for(cs: ConstraintSystem) -> list[int]:
+    """Wire ids backing pk.K: private wires minus BSB22 commitment wires and
+    committed wires (whose K points live in the Pedersen basis / vk instead;
+    reference setup.go:163-197). Identity order."""
+    cw_set = {c.commitment_index for c in cs.commitments}
+    committed = {w for cm in cs.commitments for w in cm.private_committed}
+    return [
+        w
+        for w in range(cs.n_public, cs.n_wires)
+        if w not in cw_set and w not in committed
+    ]
 
 
 def to_affine(ops, pt):
@@ -32,7 +100,7 @@ def to_affine(ops, pt):
     f = fa.f
     X, Y, Z = pt
     inf = fa.is_zero(Z)
-    if ops.g2:
+    if ops.fp2:
         # over u^2 = -q: (a + bu)^-1 = (a - bu) / (a^2 + q b^2)
         a, b = Z
         d = f.inv(f.add(f.mul(a, a), small_mul(f, f.mul(b, b), fa.q)))
@@ -45,14 +113,14 @@ def to_affine(ops, pt):
 
 
 def to_host(ops, aff, fp2_cls):
-    """Device affine points -> list[(x, y) | None] (G2: fp2_cls coordinates,
-    the curve's host Fp2 class)."""
+    """Device affine points -> list[(x, y) | None] (over Fp2: fp2_cls
+    coordinates, the curve's host Fp2 class; over Fp: plain ints)."""
     f = ops.fa.f
     X, Y, inf = aff
     comps = [c for v in (X, Y) for c in ops.fa.components(v)]
     vals = [f.decode(f.from_mont(c), mont=False) for c in comps]
     inf = inf.cpu().tolist()
-    if ops.g2:
+    if ops.fp2:
         x0, x1, y0, y1 = vals
         return [
             None if inf[i] else (fp2_cls(x0[i], x1[i]), fp2_cls(y0[i], y1[i]))
@@ -68,16 +136,17 @@ def _batch(cfg, ops, ladder, scalars, device):
     mul = FixedBaseMul(ops, fr)
     table = ladder(fp, mul.n_bits, cfg.name, device)
     aff = to_affine(ops, mul(table, fr.encode(scalars, mont=False, device=device)))
-    return aff, to_host(ops, aff, cfg.host.Fp2)
+    return aff, to_host(ops, aff, cfg.host.Fp2 if ops.fp2 else None)
 
 
 def _cols(aff, lo: int, hi: int):
     return tree_map(lambda a: a[..., lo:hi].contiguous(), aff)
 
 
-def setup(cs, rng=None, device="cpu", curve: str = "bn254"):
+def setup(cs, rng=None, device="cuda", curve: str = "bn254"):
     """(pk, vk) for an R1CS over `curve`'s r, with the key points computed
-    on `device`. rng: callable -> int in [1, r), as tpusnark's setup takes;
+    on `device`: the card, unless the caller passes "cpu" (the plain
+    versions, as the tests run them). rng: callable -> int in [1, r), as tpusnark's setup takes;
     it is drawn in tpusnark's order, so the same rng gives the same keys as
     tpusnark's setup(..., curve=curve)."""
     cfg = ported_curve(curve)
@@ -85,16 +154,16 @@ def setup(cs, rng=None, device="cpu", curve: str = "bn254"):
         raise ValueError(f"circuit modulus is not {curve}'s r")
     if cs.commitments:
         raise NotImplementedError("BSB22 commitments are not ported yet")
-    host = _host.setup
+    device = compute_device(device)
     p = cfg.host.R
     rand = rng or (lambda: secrets.randbelow(p - 1) + 1)
-    n = host._next_pow2(max(1, len(cs.constraints)))
+    n = _next_pow2(max(1, len(cs.constraints)))
     dom = Domain(cfg.fr_spec, n)
 
     alpha, beta, gamma, delta, t = (rand() for _ in range(5))
     while pow(t, n, p) == 1:
         t = rand()
-    A, B, C = host._qap_eval_at_t(cs, t, n, dom.generator)
+    A, B, C = _qap_eval_at_t(cs, t, n, dom.generator)
     gamma_inv = pow(gamma, -1, p)
     delta_inv = pow(delta, -1, p)
     npub = cs.n_public
@@ -103,7 +172,7 @@ def setup(cs, rng=None, device="cpu", curve: str = "bn254"):
         return (beta * A[w] + alpha * B[w] + C[w]) * coeff % p
 
     k_vk_s = [k_at(w, gamma_inv) for w in range(npub)]
-    k_pk_wires = host.k_pk_wires_for(cs)
+    k_pk_wires = k_pk_wires_for(cs)
     k_pk_s = [k_at(w, delta_inv) for w in k_pk_wires]
     zt = (pow(t, n, p) - 1) % p
     z_s, ti = [], 1

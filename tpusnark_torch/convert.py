@@ -18,8 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpusnark.fields.spec import FieldSpec, ints_to_limbs, limbs_to_ints
-
+from .fields.spec import FieldSpec, ints_to_limbs, limbs_to_ints
 from .fields.tfield import ints_to_words, n_words
 
 

@@ -1,6 +1,7 @@
 // Complete projective group law for G1 (over Fp) and G2 (over Fp2 =
-// Fp[u]/(u^2 + Q)) of one curve, one point per thread. Each curve_<name>.cu
-// instantiates it for one curve, so the curves build in parallel.
+// Fp[u]/(u^2 + Q), or over Fp itself for BW6-761's sextic twist) of one
+// curve, one point per thread. Each curve_<name>.cu instantiates it for one
+// curve, so the curves build in parallel.
 //
 // Replaces the TPU kernels
 //   B5  tpusnark/curves/jcurve.py FusedCurveOps.add_mixed  (RCB15 alg. 8)
@@ -12,11 +13,13 @@
 // projective outputs equal tpusnark's coordinate by coordinate.
 //
 // Bound on the H100: integer multiply throughput and registers. A G1 add is
-// 12-14 Montgomery products (~1,600 32-bit multiply-adds at 8 words, ~3,600
+// 12-14 Montgomery products (~3,700 32-bit multiply-adds at 8 words, ~8,200
 // at 12) against 9 element rows of traffic; a G2 add triples the products.
 // An Fp2 element is 2N registers (24 at 12 words), so the G2 kernels spill
-// at every width: one point per thread keeps them simple and right, and
-// register pressure is later work.
+// at every width, and so do the 24-word kernels of BW6-761 (six 24-word
+// inputs are 144 registers; their products are calls, see mont.cuh): one
+// point per thread keeps them simple and right, and register pressure is
+// later work.
 #pragma once
 
 #include "mont.cuh"
@@ -24,19 +27,23 @@
 namespace ts {
 
 // A curve as the kernels see it: its base field, its Fp2 nonresidue Q
-// (u^2 = -Q) and whether G1's 3b is 9.
-template <int FP_, int Q_, bool G1_B3_IS_9_>
+// (u^2 = -Q), whether G1's 3b is 9, and whether G2 lies over Fp itself
+// (then G2 runs the Fp kernels with its own 3b, and Q is unused).
+template <int FP_, int Q_, bool G1_B3_IS_9_, bool G2_OVER_FP_ = false>
 struct Curve {
   static constexpr int FP = FP_;
   static constexpr int Q = Q_;
   static constexpr bool G1_B3_IS_9 = G1_B3_IS_9_;
+  static constexpr bool G2_OVER_FP = G2_OVER_FP_;
+  // a G2 over Fp shares G1's kernels, so its 3b must be passed in too
+  static_assert(!(G1_B3_IS_9_ && G2_OVER_FP_), "the 3b = 9 chain serves G1 only");
 };
 
 struct CurveArgs {
   const uint32_t* in[12];  // coordinate components, (N, lanes) each
   uint32_t* out[6];
   const uint8_t* inf;           // add_mixed only: lanes that return the first operand
-  uint32_t b3[2 * MAX_WORDS];  // 3b (G1) or 3b' (G2: c0 then c1), Montgomery form
+  uint32_t b3[2 * MAX_WORDS];  // 3b (over Fp) or 3b' (over Fp2: c0 then c1), Montgomery form
 };
 
 template <class C>
@@ -173,7 +180,7 @@ constexpr int THREADS_G2 = 128;
 // op: 0 = add (B6), 1 = add_mixed (B5). in_ptrs/out_ptrs: host arrays of
 // device pointers, one per coordinate component (G1: X, Y, Z; G2: X.c0,
 // X.c1, Y.c0, ...). inf: (lanes,) bytes or null, add_mixed only. b3_host:
-// N words of 3b (G1) or 2N of 3b' (G2), Montgomery form.
+// N words of 3b (over Fp) or 2N of 3b' (over Fp2), Montgomery form.
 template <class C>
 int launch_curve(int op, int g2, const void* in_ptrs, const void* out_ptrs, const void* inf,
                  const void* b3_host, long n, void* stream) {
@@ -183,24 +190,28 @@ int launch_curve(int op, int g2, const void* in_ptrs, const void* out_ptrs, cons
   CurveArgs a = {};
   const uint64_t* ip = (const uint64_t*)in_ptrs;
   const uint64_t* outp = (const uint64_t*)out_ptrs;
-  int deg = g2 ? 2 : 1;
+  const bool fp2 = g2 && !C::G2_OVER_FP;
+  int deg = fp2 ? 2 : 1;
   int n_in = deg * (op == 0 ? 6 : 5);
   for (int k = 0; k < n_in; k++) a.in[k] = (const uint32_t*)ip[k];
   for (int k = 0; k < 3 * deg; k++) a.out[k] = (uint32_t*)outp[k];
   a.inf = op == 1 ? (const uint8_t*)inf : nullptr;
   const uint32_t* b = (const uint32_t*)b3_host;
   for (int k = 0; k < deg * N; k++) a.b3[k] = b[k];
-  if (g2) {
-    if (op == 0)
-      k_add<G2F<C>><<<ts_blocks(n, THREADS_G2), THREADS_G2, 0, st>>>(a, n);
-    else
-      k_add_mixed<G2F<C>><<<ts_blocks(n, THREADS_G2), THREADS_G2, 0, st>>>(a, n);
-  } else {
-    if (op == 0)
-      k_add<G1F<C>><<<ts_blocks(n, THREADS_G1), THREADS_G1, 0, st>>>(a, n);
-    else
-      k_add_mixed<G1F<C>><<<ts_blocks(n, THREADS_G1), THREADS_G1, 0, st>>>(a, n);
+  if constexpr (!C::G2_OVER_FP) {
+    if (fp2) {
+      if (op == 0)
+        k_add<G2F<C>><<<ts_blocks(n, THREADS_G2), THREADS_G2, 0, st>>>(a, n);
+      else
+        k_add_mixed<G2F<C>><<<ts_blocks(n, THREADS_G2), THREADS_G2, 0, st>>>(a, n);
+      return (int)cudaGetLastError();
+    }
   }
+  constexpr int threads = N > INLINE_MUL_WORDS ? THREADS_G2 : THREADS_G1;
+  if (op == 0)
+    k_add<G1F<C>><<<ts_blocks(n, threads), threads, 0, st>>>(a, n);
+  else
+    k_add_mixed<G1F<C>><<<ts_blocks(n, threads), threads, 0, st>>>(a, n);
   return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,7 @@
 // Elementwise field kernels over (N, lanes) limb-major words, one template
-// per op instantiated for BN254 fr/fp (8 words), BLS12-381 fr (9) and
-// BLS12-381 fp (12).
+// per op instantiated for every field id of mont.cuh: BN254 fr/fp and
+// BLS12-377 fr (8 words), BLS12-381 fr (9), BLS12-381 fp, BLS12-377 fp and
+// BW6-761 fr (12), BW6-761 fp (24).
 //
 // Replaces the TPU kernels
 //   B1  tpusnark/fields/jfield.py Field._mul_impl   (fused through fields/fuse.py)
@@ -10,8 +11,9 @@
 // built for the base fields only: no path negates a scalar.
 //
 // Bound on the H100: a mul reads 8N bytes and writes 4N per lane and does
-// ~2N^2 32-bit multiply-adds (128 at 8 words, 288 at 12), so at 2^17 lanes
-// it is launch- and memory-bound; one lane per thread with coalesced word
+// 4N^2 + N 32-bit multiply-adds (2N^2 word products, a low and a high half
+// each, and N low halves for the m's: 264 at 8 words, 588 at 12, 2,328 at
+// 24), so at 2^17 lanes it is launch- and memory-bound up to 12 words; one lane per thread with coalesced word
 // rows is the simple design that reads every byte once. add/sub/neg are pure
 // memory traffic.
 #include "mont.cuh"
@@ -91,7 +93,7 @@ int launch_unary(int op, const void* a, void* out, long n, cudaStream_t st) {
   if (op == 0) {
     k_from_mont<F><<<blocks, THREADS, 0, st>>>(A, O, n);
   } else {
-    if constexpr (F == BN254_FP || F == BLS12_381_FP)
+    if constexpr (F == BN254_FP || F == BLS12_381_FP || F == BLS12_377_FP || F == BW6_761_FP)
       k_neg<F><<<blocks, THREADS, 0, st>>>(A, O, n);
     else
       return (int)cudaErrorInvalidValue;
@@ -107,6 +109,10 @@ int binary(int op, int field, const void* a, const void* b, void* out, long n, v
     case BN254_FP: return launch_binary<BN254_FP>(op, a, b, out, n, st);
     case BLS12_381_FR: return launch_binary<BLS12_381_FR>(op, a, b, out, n, st);
     case BLS12_381_FP: return launch_binary<BLS12_381_FP>(op, a, b, out, n, st);
+    case BLS12_377_FR: return launch_binary<BLS12_377_FR>(op, a, b, out, n, st);
+    case BLS12_377_FP: return launch_binary<BLS12_377_FP>(op, a, b, out, n, st);
+    case BW6_761_FR: return launch_binary<BW6_761_FR>(op, a, b, out, n, st);
+    case BW6_761_FP: return launch_binary<BW6_761_FP>(op, a, b, out, n, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -119,6 +125,10 @@ int unary(int op, int field, const void* a, void* out, long n, void* stream) {
     case BN254_FP: return launch_unary<BN254_FP>(op, a, out, n, st);
     case BLS12_381_FR: return launch_unary<BLS12_381_FR>(op, a, out, n, st);
     case BLS12_381_FP: return launch_unary<BLS12_381_FP>(op, a, out, n, st);
+    case BLS12_377_FR: return launch_unary<BLS12_377_FR>(op, a, out, n, st);
+    case BLS12_377_FP: return launch_unary<BLS12_377_FP>(op, a, out, n, st);
+    case BW6_761_FR: return launch_unary<BW6_761_FR>(op, a, out, n, st);
+    case BW6_761_FP: return launch_unary<BW6_761_FP>(op, a, out, n, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -5,8 +5,9 @@
 // Elements are N little-endian 32-bit words in Montgomery form with
 // R = 2^(32 N), stored limb-major: word w of lane i of an (N, lanes) tensor
 // sits at ptr[w * lanes + i], so consecutive threads read consecutive words.
-// N is ceil(n_limbs / 2) of the field's FieldSpec: 8 for BN254 fr and fp, 9
-// for BLS12-381 fr, 12 for BLS12-381 fp.
+// N is ceil(n_limbs / 2) of the field's FieldSpec: 8 for BN254 fr and fp and
+// BLS12-377 fr, 9 for BLS12-381 fr, 12 for BLS12-381 fp, BLS12-377 fp and
+// BW6-761 fr (the same modulus: the 2-chain), 24 for BW6-761 fp.
 //
 // The lazy-range contract is tpusnark's (fields/jfield.py): inputs and
 // outputs of mul/add/sub lie in [0, 2p). It is sound because 4p < R for
@@ -21,13 +22,22 @@
 
 namespace ts {
 
-constexpr int MAX_WORDS = 12;
+constexpr int MAX_WORDS = 24;
 
 // field ids: the index into MODS and the `field` argument of the entry points
-enum FieldId { BN254_FR = 0, BN254_FP = 1, BLS12_381_FR = 2, BLS12_381_FP = 3 };
+enum FieldId {
+  BN254_FR = 0,
+  BN254_FP = 1,
+  BLS12_381_FR = 2,
+  BLS12_381_FP = 3,
+  BLS12_377_FR = 4,
+  BLS12_377_FP = 5,
+  BW6_761_FR = 6,
+  BW6_761_FP = 7
+};
 
 __host__ __device__ constexpr int words_of(int f) {
-  return f == BLS12_381_FR ? 9 : f == BLS12_381_FP ? 12 : 8;
+  return f == BLS12_381_FR ? 9 : f == BLS12_381_FP ? 12 : f == BLS12_377_FP ? 12 : f == BW6_761_FR ? 12 : f == BW6_761_FP ? 24 : 8;
 }
 
 struct Mod {
@@ -38,7 +48,7 @@ struct Mod {
 
 // One entry per field id; tests/test_torch_field.py checks every value
 // against the FieldSpec of the same name.
-static __constant__ Mod MODS[4] = {
+static __constant__ Mod MODS[8] = {
     // field 0: bn254_fr, 8 words
     {{0xf0000001u, 0x43e1f593u, 0x79b97091u, 0x2833e848u, 0x8181585du,
       0xb85045b6u, 0xe131a029u, 0x30644e72u},
@@ -65,6 +75,40 @@ static __constant__ Mod MODS[4] = {
       0xce61a541u, 0xe70a257eu, 0xc8ee9709u, 0x869759aeu, 0x96374f6cu,
       0x72ffcd34u, 0x340223d4u},
      0xfffcfffdu},
+    // field 4: bls12_377_fr, 8 words
+    {{0x00000001u, 0x0a118000u, 0xd0000001u, 0x59aa76feu, 0x5c37b001u,
+      0x60b44d1eu, 0x9a2ca556u, 0x12ab655eu},
+     {0x00000002u, 0x14230000u, 0xa0000002u, 0xb354edfdu, 0xb86f6002u,
+      0xc1689a3cu, 0x34594aacu, 0x2556cabdu},
+     0xffffffffu},
+    // field 5: bls12_377_fp, 12 words
+    {{0x00000001u, 0x8508c000u, 0x30000000u, 0x170b5d44u, 0xba094800u,
+      0x1ef3622fu, 0x00f5138fu, 0x1a22d9f3u, 0x6ca1493bu, 0xc63b05c0u,
+      0x17c510eau, 0x01ae3a46u},
+     {0x00000002u, 0x0a118000u, 0x60000001u, 0x2e16ba88u, 0x74129000u,
+      0x3de6c45fu, 0x01ea271eu, 0x3445b3e6u, 0xd9429276u, 0x8c760b80u,
+      0x2f8a21d5u, 0x035c748cu},
+     0xffffffffu},
+    // field 6: bw6_761_fr, 12 words
+    {{0x00000001u, 0x8508c000u, 0x30000000u, 0x170b5d44u, 0xba094800u,
+      0x1ef3622fu, 0x00f5138fu, 0x1a22d9f3u, 0x6ca1493bu, 0xc63b05c0u,
+      0x17c510eau, 0x01ae3a46u},
+     {0x00000002u, 0x0a118000u, 0x60000001u, 0x2e16ba88u, 0x74129000u,
+      0x3de6c45fu, 0x01ea271eu, 0x3445b3e6u, 0xd9429276u, 0x8c760b80u,
+      0x2f8a21d5u, 0x035c748cu},
+     0xffffffffu},
+    // field 7: bw6_761_fp, 24 words
+    {{0x0000008bu, 0xf49d0000u, 0x70000082u, 0xe6913e68u, 0xeaf0a437u,
+      0x160cf8aeu, 0x5667a8f8u, 0x98a116c2u, 0x73ebff2eu, 0x71dcd3dcu,
+      0x12f9fd90u, 0x8689c8edu, 0x25b42304u, 0x03cebaffu, 0xe584e919u,
+      0x707ba638u, 0x8087be41u, 0x528275efu, 0x81d14688u, 0xb926186au,
+      0x04faff3eu, 0xd187c940u, 0xfb83ce0au, 0x0122e824u},
+     {0x00000116u, 0xe93a0000u, 0xe0000105u, 0xcd227cd0u, 0xd5e1486fu,
+      0x2c19f15du, 0xaccf51f0u, 0x31422d84u, 0xe7d7fe5du, 0xe3b9a7b8u,
+      0x25f3fb20u, 0x0d1391dau, 0x4b684609u, 0x079d75feu, 0xcb09d232u,
+      0xe0f74c71u, 0x010f7c82u, 0xa504ebdfu, 0x03a28d10u, 0x724c30d5u,
+      0x09f5fe7du, 0xa30f9280u, 0xf7079c15u, 0x0245d049u},
+     0x8fa798ddu},
 };
 
 template <int N>
@@ -97,9 +141,9 @@ __device__ __forceinline__ Elt<N> zero() {
   return r;
 }
 
-// Montgomery product a*b*R^-1, CIOS over 32-bit words.
+// Montgomery product a*b*R^-1, CIOS over 32-bit words, fully unrolled.
 template <int F>
-__device__ __forceinline__ EltOf<F> mul(const EltOf<F>& a, const EltOf<F>& b) {
+__device__ __forceinline__ EltOf<F> mul_unrolled(const EltOf<F>& a, const EltOf<F>& b) {
   constexpr int N = words_of(F);
   const Mod& M = MODS[F];
   uint32_t t[N + 2];
@@ -134,6 +178,25 @@ __device__ __forceinline__ EltOf<F> mul(const EltOf<F>& a, const EltOf<F>& b) {
 #pragma unroll
   for (int k = 0; k < N; k++) r.w[k] = t[k];
   return r;
+}
+
+// The same product as one function that its callers call: above
+// INLINE_MUL_WORDS a product is thousands of instructions (2,328 multiply-adds
+// at 24 words), and a curve kernel that inlined its 12-14 products would take
+// ptxas minutes and spill every operand anyway.
+template <int F>
+__device__ __noinline__ EltOf<F> mul_called(const EltOf<F>& a, const EltOf<F>& b) {
+  return mul_unrolled<F>(a, b);
+}
+
+constexpr int INLINE_MUL_WORDS = 12;
+
+template <int F>
+__device__ __forceinline__ EltOf<F> mul(const EltOf<F>& a, const EltOf<F>& b) {
+  if constexpr (words_of(F) > INLINE_MUL_WORDS)
+    return mul_called<F>(a, b);
+  else
+    return mul_unrolled<F>(a, b);
 }
 
 // a + b, reduced by 2p when the sum reaches 2p (a, b < 2p; sum < 4p < R).

@@ -1,6 +1,7 @@
 // NTT butterflies over a scalar field, on flat (N, lanes) operands and
 // (N, lanes) twiddle rows (the caller tiles each stage's twiddles).
-// Instantiated for BN254 fr (8 words) and BLS12-381 fr (9 words).
+// Instantiated for the scalar fields: BN254 fr and BLS12-377 fr (8 words),
+// BLS12-381 fr (9 words) and BW6-761 fr (12 words).
 //
 // Replaces the TPU kernels
 //   B3  tpusnark/poly/ntt.py NTT._butterfly   (e + o*w, e - o*w)
@@ -87,6 +88,8 @@ TS_EXPORT int ts_ntt_butterfly(int field, const void* e, const void* o, const vo
   switch (field) {
     case BN254_FR: return launch_butterfly<BN254_FR>(e, o, w, out_a, out_b, n, st);
     case BLS12_381_FR: return launch_butterfly<BLS12_381_FR>(e, o, w, out_a, out_b, n, st);
+    case BLS12_377_FR: return launch_butterfly<BLS12_377_FR>(e, o, w, out_a, out_b, n, st);
+    case BW6_761_FR: return launch_butterfly<BW6_761_FR>(e, o, w, out_a, out_b, n, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -99,6 +102,8 @@ TS_EXPORT int ts_ntt_butterfly4(int field, const void* ptrs_host, long n, void* 
   switch (field) {
     case BN254_FR: return launch_butterfly4<BN254_FR>(p, n, st);
     case BLS12_381_FR: return launch_butterfly4<BLS12_381_FR>(p, n, st);
+    case BLS12_377_FR: return launch_butterfly4<BLS12_377_FR>(p, n, st);
+    case BW6_761_FR: return launch_butterfly4<BW6_761_FR>(p, n, st);
   }
   return (int)cudaErrorInvalidValue;
 }

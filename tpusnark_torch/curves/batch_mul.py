@@ -3,8 +3,8 @@ tpusnark/curves/batch_mul.py:FixedBaseMul), used by Groth16 setup.
 
 The base is fixed, so the 2^k * G ladder is built once on the host from the
 curve's host module (``CurveConfig.host``), and the device runs one complete
-mixed add per scalar bit over the whole scalar vector. tpusnark selects between acc and acc + 2^k G
-after the add; here lanes whose bit is 0 are the add's infinity lanes, which
+mixed add per scalar bit over the whole scalar vector. tpusnark selects
+between acc and acc + 2^k G after the add; here lanes whose bit is 0 are the add's infinity lanes, which
 return acc unchanged: the same result, in one kernel launch (B5) per bit.
 """
 
@@ -14,10 +14,9 @@ import functools
 
 import torch
 
-from tpusnark.curves.config import get_curve
-
 from ..fields.tfield import Field
 from ..msm.pippenger import tree_map
+from .config import get_curve
 from .tcurve import CurveOps
 
 
@@ -71,6 +70,11 @@ def g1_generator_ladder(fp: Field, n_bits: int, curve: str, device="cpu"):
 
 def g2_generator_ladder(fp: Field, n_bits: int, curve: str, device="cpu"):
     pts = _ladder_host("g2", n_bits, curve)
+    if isinstance(pts[0][0], int):  # G2 over Fp (BW6-761): the G1 layout
+        return (
+            fp.encode([pt[0] for pt in pts], device=device),
+            fp.encode([pt[1] for pt in pts], device=device),
+        )
     X = (
         fp.encode([pt[0].c0 for pt in pts], device=device),
         fp.encode([pt[0].c1 for pt in pts], device=device),

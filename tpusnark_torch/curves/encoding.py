@@ -1,13 +1,14 @@
 """Host <-> device point encoding (counterpart of tpusnark/curves/encoding.py).
 
 Host points are affine python-int tuples ((x, y) for G1, (Fp2, Fp2) for G2)
-or None for infinity, as in the curve's host module (``tpusnark.curves.ref``
-for BN254, ``tpusnark.curves.bls12381`` for BLS12-381). Device points are
-``(X, Y, inf)`` with ``(words, N)`` Montgomery word tensors (G2: ``(c0,
-c1)`` tuples) and a bool ``(N,)`` mask; infinity lanes hold the placeholder
-(0, 1). Every function takes the base field, and the G2 decoders the host
-Fp2 class and the nonresidue q (u^2 = -q) of the curve: there is no default
-curve.
+or None for infinity, as in the curve's host module (``curves/ref.py`` for
+BN254, ``curves/bls12381.py``, ``curves/bls12377.py``, ``curves/bw6761.py``).
+Device points are ``(X, Y, inf)`` with ``(words, N)`` Montgomery word tensors
+(G2: ``(c0, c1)`` tuples) and a bool ``(N,)`` mask; infinity lanes hold the
+placeholder (0, 1). Every function takes the base field, and the G2 decoders
+the host Fp2 class and the nonresidue q (u^2 = -q) of the curve: there is no
+default curve. Where G2 lies over Fp itself (BW6-761) its points are plain
+int pairs and take the G1 functions.
 """
 
 from __future__ import annotations

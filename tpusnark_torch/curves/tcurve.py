@@ -1,5 +1,5 @@
-"""Batched elliptic-curve arithmetic on torch tensors (G1 over Fp, G2 over
-Fp2 = Fp[u]/(u^2 + q)).
+"""Batched elliptic-curve arithmetic on torch tensors (G1 over Fp; G2 over
+Fp2 = Fp[u]/(u^2 + q), or over Fp itself for BW6-761).
 
 Counterpart of ``tpusnark/curves/jcurve.py``: Renes-Costello-Batina complete
 projective formulas for a = 0, identity (0 : 1 : 0). Coordinates are field
@@ -11,18 +11,17 @@ elements ``(words, *batch)`` (G2: ``(c0, c1)`` tuples of them); points are
 it is the plain version of the two curve kernels. ``KernelCurveOps`` (in place
 of tpusnark's ``FusedCurveOps``) sends ``add`` and ``add_mixed`` of CUDA
 tensors to the curve's kernels (``csrc/curve_<curve>.cu``) and everything on
-the CPU to ``CurveOps``. ``curve_ops(name)`` builds both groups from
-tpusnark's ``CurveConfig``.
+the CPU to ``CurveOps``. ``curve_ops(name)`` builds both groups from the
+curve's ``CurveConfig``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from tpusnark.curves.config import get_curve
-
 from .. import kernels
 from ..fields.tfield import Field, _flat, get_field
+from .config import get_curve
 
 
 class FpArith:
@@ -68,6 +67,7 @@ class FpArith:
 
     def mul_b3(self, x):
         # 3b = 9 (BN254 G1): 9x = 8x + x; else a Montgomery product by 3b
+        # (mod p: BW6-761's G1 has b = -1)
         if self.b3 == 9:
             x2 = self.f.add(x, x)
             x4 = self.f.add(x2, x2)
@@ -288,20 +288,27 @@ class KernelCurveOps(CurveOps):
     on CUDA tensors and the plain CurveOps formulas on CPU tensors.
 
     Operands are broadcast to one batch shape and flattened to (words, N)
-    around the kernel, as FusedCurveOps flattens around the TPU kernel. The
-    kernels of a curve build in its G1 add chain (3b = 9) and its Fp2 q, so
-    ops over a base field with kernels must carry that curve's constants; 3b
-    itself goes to the kernel in Montgomery form."""
+    around the kernel, as FusedCurveOps flattens around tpusnark's kernel.
+    `group` ("g1" or "g2") names the kernel instances that are launched and
+    counted; where G2 lies over Fp (BW6-761) it runs the Fp formulas with
+    its own 3b. The kernels of a curve build in its G1 add chain (3b = 9)
+    and its Fp2 q, so ops over a base field with kernels must carry that
+    curve's constants; 3b itself goes to the kernel in Montgomery form."""
 
-    def __init__(self, fa):
+    def __init__(self, fa, group: str):
         super().__init__(fa)
-        self.g2 = isinstance(fa, Fp2Arith)
+        if group not in ("g1", "g2"):
+            raise ValueError(f"unknown group {group}")
+        self.group = group
+        self.fp2 = isinstance(fa, Fp2Arith)
         curve = kernels.curve_of(fa.f.spec)
         if curve is not None:
             cfg = get_curve(curve)
-            if self.g2 and fa.q != cfg.fp2_q:
+            if self.fp2 != (group == "g2" and not cfg.g2_over_fp):
+                raise ValueError(f"the {curve} {group} kernels are not over {type(fa).__name__}")
+            if self.fp2 and fa.q != cfg.fp2_q:
                 raise ValueError(f"the {curve} G2 kernels are built for q = {cfg.fp2_q}")
-            if not self.g2 and (fa.b3 == 9) != (3 * cfg.g1_b == 9):
+            if group == "g1" and (fa.b3 == 9) != (3 * cfg.g1_b == 9):
                 raise ValueError(f"the {curve} G1 kernels are built for 3b = {3 * cfg.g1_b}")
         self._b3_words = None
 
@@ -309,7 +316,7 @@ class KernelCurveOps(CurveOps):
         """The uint32 words of 3b (G1) or 3b' (G2: c0 then c1), Montgomery."""
         if self._b3_words is None:
             fa = self.fa
-            consts = fa.b3_const("cpu") if self.g2 else (fa.f.const(fa.b3, mont=True),)
+            consts = fa.b3_const("cpu") if self.fp2 else (fa.f.const(fa.b3, mont=True),)
             words = torch.cat(consts).numpy().view("uint32")
             self._b3_words = [int(w) for w in words]
         return self._b3_words
@@ -322,7 +329,7 @@ class KernelCurveOps(CurveOps):
         flat = [_flat(t) for t in tensors]
         if inf is not None:
             inf = inf.expand(batch).reshape(-1).contiguous()
-        outs = kernels.curve_op(op, self.g2, fa.f.spec, flat, self._b3(), inf=inf)
+        outs = kernels.curve_op(op, self.group == "g2", fa.f.spec, flat, self._b3(), inf=inf)
         outs = [o.view((o.shape[0],) + tuple(batch)) for o in outs]
         d = len(fa.components(coords[0]))
         return tuple(fa.from_components(outs[i * d : (i + 1) * d]) for i in range(3))
@@ -345,20 +352,24 @@ class KernelCurveOps(CurveOps):
         return super().add_mixed(p, q_affine)
 
 
-def g1_ops(field_fp: Field, b: int) -> KernelCurveOps:
-    """G1: y^2 = x^3 + b over field_fp."""
-    return KernelCurveOps(FpArith(field_fp, b=b))
+def g1_ops(field_fp: Field, b: int, group: str = "g1") -> KernelCurveOps:
+    """y^2 = x^3 + b over field_fp: G1, or with group = "g2" a G2 that lies
+    over Fp itself (BW6-761's sextic twist)."""
+    return KernelCurveOps(FpArith(field_fp, b=b), group)
 
 
 def g2_ops(field_fp: Field, b3: tuple[int, int], q: int) -> KernelCurveOps:
     """G2 over Fp[u]/(u^2 + q), with 3b' = b3 = (c0, c1)."""
-    return KernelCurveOps(Fp2Arith(field_fp, tuple(b3), q))
+    return KernelCurveOps(Fp2Arith(field_fp, tuple(b3), q), "g2")
 
 
 def curve_ops(name: str) -> tuple[KernelCurveOps, KernelCurveOps]:
-    """(G1, G2) ops of a curve with G2 over Fp2, from tpusnark's CurveConfig."""
+    """(G1, G2) ops of a curve with G2 over Fp2 or over Fp, from its
+    CurveConfig."""
     cfg = get_curve(name)
-    if cfg.g2_over_fp or cfg.g2_fp4:
-        raise NotImplementedError(f"curve {name}: G2 over Fp or Fp4 is not ported yet")
+    if cfg.g2_fp4:
+        raise NotImplementedError(f"curve {name}: G2 over Fp4 is not ported yet")
     fp = get_field(cfg.fp_spec)
+    if cfg.g2_over_fp:
+        return g1_ops(fp, cfg.g1_b), g1_ops(fp, cfg.g2_b, group="g2")
     return g1_ops(fp, cfg.g1_b), g2_ops(fp, cfg.g2_b3, cfg.fp2_q)

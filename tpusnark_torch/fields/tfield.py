@@ -4,8 +4,9 @@ Counterpart of ``tpusnark/fields/jfield.py:Field``. An element of a field
 whose FieldSpec has n 16-bit limbs is ``words = ceil(n / 2)`` little-endian
 32-bit words held in ``int32`` tensors of shape ``(words, *batch)`` (uint32
 bit patterns), limb axis first, in Montgomery form with R = 2^(32 * words):
-8 words for BN254 (R = 2^256), 9 for BLS12-381 fr (R = 2^288), 12 for
-BLS12-381 fp (R = 2^384). Where n is even, R is tpusnark's 2^(16 n) and the
+8 words for BN254 and BLS12-377 fr (R = 2^256), 9 for BLS12-381 fr
+(R = 2^288), 12 for BLS12-381 fp, BLS12-377 fp and BW6-761 fr (R = 2^384),
+24 for BW6-761 fp (R = 2^768). Where n is even, R is tpusnark's 2^(16 n) and the
 Montgomery forms agree bit for bit; for a 17-limb spec (BLS12-381 fr)
 tpusnark's R is 2^272, so this module encodes and decodes with its own R and
 ``convert.py`` re-encodes state that crosses between the two. 4p < R holds
@@ -19,7 +20,8 @@ in this module. torch on the CPU has no uint32 add, shift or compare, and
 ``>>`` on int32 sign-extends, so the plain versions widen the words to int64.
 Like jfield.py they work on whole columns: limb products are 16x16-bit outer
 products summed along antidiagonals (``_product_cols``), and carries are
-resolved for all words at once (``_normalize``) instead of word by word. They
+resolved for all words at once (``_normalize``, through ``_lex_prefix``)
+instead of word by word. They
 compute the same lazy representatives as the kernels, word for word.
 """
 
@@ -30,9 +32,8 @@ import functools
 import numpy as np
 import torch
 
-from tpusnark.fields.spec import FieldSpec
-
 from .. import kernels
+from .spec import FieldSpec
 
 M16 = 0xFFFF
 M32 = 0xFFFFFFFF
@@ -45,6 +46,17 @@ def canonical_device(device) -> torch.device:
     if d.type == "cuda" and d.index is None:
         d = torch.device("cuda", torch.cuda.current_device())
     return d
+
+
+def compute_device(device) -> torch.device:
+    """The device an entry point computes on: the card, unless the caller
+    names the CPU. Raises where a card is asked for and there is none."""
+    d = torch.device(device)
+    if d.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f'device {str(d)!r} asked for, but torch sees no CUDA card; pass device="cpu" to run the plain versions'
+        )
+    return canonical_device(d)
 
 
 # ------------------------------------------------------------ host encoding
@@ -108,19 +120,23 @@ def _bcast(c: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return c.to(like.device).view((c.shape[0],) + (1,) * (like.dim() - 1))
 
 
-@functools.lru_cache(maxsize=None)
-def _pow3(m: int, device: str) -> torch.Tensor:
-    return torch.tensor([3**j for j in range(m)], dtype=_I64, device=device)
-
-
 def _lex_prefix(t: torch.Tensor) -> torch.Tensor:
     """For every word k, the sign of the most significant nonzero t_j with
-    j < k (0 if none), for all k at once: sum_j sign(t_j) * 3^j has the sign
-    of its highest nonzero term. Returns (m + 1, *b): row m is over all j.
-    The sum stays inside int64 for m <= 39 rows (2 * MAX_WORDS = 32 here)."""
-    w = _bcast(_pow3(t.shape[0], str(t.device)), t)
-    cs = torch.cumsum(torch.sign(t) * w, dim=0)
-    return torch.cat([torch.zeros_like(cs[:1]), cs], dim=0)
+    j < k (0 if none), for all k at once. Returns (m + 1, *b): row m is over
+    all j.
+
+    A log-step scan: at step d every row that is still 0 takes the value d
+    rows below it, so after ceil(log2 m) steps each row holds the sign of the
+    highest nonzero row at or below it. Sound at any row count (a 24-word
+    product has 48 word rows)."""
+    m = t.shape[0]
+    s = torch.sign(t)
+    d = 1
+    while d < m:
+        below = torch.cat([torch.zeros_like(s[:d]), s[:-d]], dim=0)
+        s = torch.where(s != 0, s, below)
+        d *= 2
+    return torch.cat([torch.zeros_like(s[:1]), s], dim=0)
 
 
 def _normalize(cols: torch.Tensor):
@@ -145,8 +161,8 @@ def _product_cols(x16: torch.Tensor, y16: torch.Tensor) -> torch.Tensor:
     """16-bit limbs (2m, *b) x (2m, *b) -> (2m, *b) int64 columns of weight
     2^(32k) of the 64m-bit product: antidiagonal sums of the outer product,
     paired into 32-bit columns. With 2m limbs an antidiagonal sums at most
-    2m products < 2^32, so at 12 words (24 limbs) each is < 24 * 2^32 < 2^37
-    and a paired column < 2^54, inside _normalize's 2^62."""
+    2m products < 2^32, so at 24 words (48 limbs) each is < 48 * 2^32 < 2^38
+    and a paired column < 2^55, inside _normalize's 2^62."""
     n = x16.shape[0]
     outer = x16[:, None] * y16[None]
     idx = _antidiag_index(n, str(x16.device))
@@ -175,7 +191,7 @@ def _device_kind(*ts) -> str:
     return kind
 
 
-MAX_WORDS = 16
+MAX_WORDS = 24
 
 
 class Field:

@@ -11,7 +11,8 @@ module imports on a machine without ``nvcc`` or a card.
 
 Every wrapper takes CUDA tensors only: int32 ``(words, N)`` limb-major words
 that hold uint32 bit patterns, contiguous, with the word count of the field
-(8 for BN254, 9 for BLS12-381 fr, 12 for BLS12-381 fp). It checks them, and
+(8 for BN254 and BLS12-377 fr, 9 for BLS12-381 fr, 12 for BLS12-381 fp,
+BLS12-377 fp and BW6-761 fr, 24 for BW6-761 fp). It checks them, and
 refuses a field or curve without kernels before anything is built; it
 allocates its outputs with ``torch.empty``, launches on the current stream,
 raises if the launch failed, and adds one to ``LAUNCHES[name]``. Instance
@@ -30,25 +31,60 @@ import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("field.cu", "ntt.cu", "curve_bn254.cu", "curve_bls12_381.cu")
+SOURCES = (
+    "field.cu",
+    "ntt.cu",
+    "curve_bn254.cu",
+    "curve_bls12_381.cu",
+    "curve_bls12_377.cu",
+    "curve_bw6_761.cu",
+)
 HEADERS = ("mont.cuh", "curve.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # field spec name -> (id of the field in csrc/mont.cuh, words)
-SPECS = {"bn254_fr": (0, 8), "bn254_fp": (1, 8), "bls12_381_fr": (2, 9), "bls12_381_fp": (3, 12)}
+SPECS = {
+    "bn254_fr": (0, 8),
+    "bn254_fp": (1, 8),
+    "bls12_381_fr": (2, 9),
+    "bls12_381_fp": (3, 12),
+    "bls12_377_fr": (4, 8),
+    "bls12_377_fp": (5, 12),
+    "bw6_761_fr": (6, 12),
+    "bw6_761_fp": (7, 24),
+}
 # curve name -> (scalar field, base field); its curve kernels are
 # ts_curve_<tag>, tag = the base field's name without "_fp"
-CURVES = {"bn254": ("bn254_fr", "bn254_fp"), "bls12-381": ("bls12_381_fr", "bls12_381_fp")}
-BASE_FIELDS = {fp for _, fp in CURVES.values()}
+CURVES = {
+    "bn254": ("bn254_fr", "bn254_fp"),
+    "bls12-381": ("bls12_381_fr", "bls12_381_fp"),
+    "bls12-377": ("bls12_377_fr", "bls12_377_fp"),
+    "bw6-761": ("bw6_761_fr", "bw6_761_fp"),
+}
+# curves whose G2 lies over Fp itself: its kernels are the Fp instances,
+# launched and counted under the g2_* names
+G2_OVER_FP = frozenset({"bw6-761"})
 FIELD_OPS = ("mul", "from_mont", "add", "sub")
 BASE_FIELD_OPS = FIELD_OPS + ("neg",)  # no path negates a scalar
 CURVE_OPS = ("g1_add", "g1_add_mixed", "g2_add", "g2_add_mixed")
+
+
+def base_field_ops(curve: str) -> tuple[str, ...]:
+    """The ops with a kernel over `curve`'s base field. Outside the curve
+    kernels only an Fp2 inversion adds and subtracts base-field elements, so
+    a curve whose G2 lies over Fp has no add and no sub instance."""
+    return ("mul", "from_mont", "neg") if curve in G2_OVER_FP else BASE_FIELD_OPS
+
+
+# base field spec name -> its ops
+BASE_FIELDS = {fp: base_field_ops(curve) for curve, (_, fp) in CURVES.items()}
 
 
 def instances(curve: str) -> list[str]:
@@ -56,7 +92,7 @@ def instances(curve: str) -> list[str]:
     fr, fp = CURVES[curve]
     return (
         [f"{op}[{fr}]" for op in FIELD_OPS]
-        + [f"{op}[{fp}]" for op in BASE_FIELD_OPS]
+        + [f"{op}[{fp}]" for op in BASE_FIELDS[fp]]
         + [f"butterfly[{fr}]", f"butterfly4[{fr}]"]
         + [f"{op}[{curve}]" for op in CURVE_OPS]
     )
@@ -114,32 +150,34 @@ def _source_hash() -> str:
 
 
 def _compile(out_dir: Path, so: Path) -> dict:
-    """One nvcc per source, all started together, then one link. Returns
-    the ptxas report per source."""
+    """One nvcc per source, all started together, then one link; the ptxas
+    reports go to ptxas.log. Returns the compile seconds per source."""
     nvcc = _nvcc()
-    procs = {}
-    for src in SOURCES:
-        obj = out_dir / (Path(src).stem + ".o")
-        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / src)]
-        procs[src] = (obj, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-    reports, failed = {}, []
-    for src, (_, proc) in procs.items():
-        out, err = proc.communicate()
-        reports[src] = out + err
-        if proc.returncode != 0:
-            failed.append(f"{src} ({proc.returncode}):\n{err}")
+    objs = {src: out_dir / (Path(src).stem + ".o") for src in SOURCES}
+
+    def compile_one(src):
+        t0 = time.perf_counter()
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(objs[src]), str(CSRC / src)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        return res, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=len(SOURCES)) as pool:
+        done = dict(zip(SOURCES, pool.map(compile_one, SOURCES)))
+    reports = {src: res.stdout + res.stderr for src, (res, _) in done.items()}
+    seconds = {src: sec for src, (_, sec) in done.items()}
+    failed = [f"{src} ({res.returncode}):\n{res.stderr}" for src, (res, _) in done.items() if res.returncode]
     if failed:
         raise RuntimeError("nvcc failed: " + "\n".join(failed))
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
     os.close(fd)
-    cmd = [nvcc, *ARCH, "-shared", "-o", tmp, *(str(obj) for obj, _ in procs.values())]
+    cmd = [nvcc, *ARCH, "-shared", "-o", tmp, *(str(obj) for obj in objs.values())]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         os.unlink(tmp)
         raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stderr}")
     os.replace(tmp, so)
     (out_dir / "ptxas.log").write_text("".join(f"== {s}\n{r}" for s, r in reports.items()))
-    return reports
+    return seconds
 
 
 def build() -> ctypes.CDLL:
@@ -150,10 +188,10 @@ def build() -> ctypes.CDLL:
     out_dir = CSRC / "_build" / _source_hash()
     so = out_dir / "libtpusnark_torch_kernels.so"
     t0 = time.perf_counter()
-    compiled = False
+    compiled, source_seconds = False, {}
     if not so.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
-        _compile(out_dir, so)
+        source_seconds = _compile(out_dir, so)
         compiled = True
     log = out_dir / "ptxas.log"
     lib = ctypes.CDLL(str(so))
@@ -165,6 +203,7 @@ def build() -> ctypes.CDLL:
         path=str(so),
         compiled=compiled,
         seconds=time.perf_counter() - t0,
+        source_seconds=source_seconds,
         ptxas=log.read_text() if log.exists() else "",
     )
     _lib = lib
@@ -208,7 +247,7 @@ def _spec(spec, op: str | None = None) -> tuple[int, int]:
         fid, words = SPECS[spec.name]
     except KeyError:
         raise ValueError(f"no CUDA kernels for field {spec.name}") from None
-    if op is not None and op not in (BASE_FIELD_OPS if spec.name in BASE_FIELDS else FIELD_OPS):
+    if op is not None and op not in BASE_FIELDS.get(spec.name, FIELD_OPS):
         raise ValueError(f"no CUDA kernel {op} for field {spec.name}")
     return fid, words
 
@@ -298,16 +337,17 @@ def curve_op(op: str, g2: bool, fp_spec, ins, b3_words, inf=None):
     the curve whose base field is `fp_spec`.
 
     ins: the coordinate components of both operands, flattened in order
-    (G1: X1 Y1 Z1 X2 Y2 [Z2]; G2: X1.c0 X1.c1 Y1.c0 ...), each (words, N).
-    b3_words: the uint32 words of 3b (G1, words) or 3b' (G2, c0 then c1,
-    2 * words) in Montgomery form. inf: (N,) bool for add_mixed, lanes that
-    return the first operand. Returns the output components (X, Y, Z; G2:
-    X.c0, X.c1, ...)."""
+    (over Fp: X1 Y1 Z1 X2 Y2 [Z2]; over Fp2: X1.c0 X1.c1 Y1.c0 ...), each
+    (words, N). b3_words: the uint32 words of 3b (over Fp, words) or 3b'
+    (over Fp2, c0 then c1, 2 * words) in Montgomery form. inf: (N,) bool for
+    add_mixed, lanes that return the first operand. Returns the output
+    components (X, Y, Z; over Fp2: X.c0, X.c1, ...). G2 is over Fp2, except
+    for the curves in G2_OVER_FP."""
     curve = curve_of(fp_spec)
     if curve is None:
         raise ValueError(f"no CUDA curve kernels over {fp_spec.name}")
     words = SPECS[fp_spec.name][1]
-    deg = 2 if g2 else 1
+    deg = 2 if g2 and curve not in G2_OVER_FP else 1
     want = deg * (6 if op == "add" else 5)
     if op not in ("add", "add_mixed"):
         raise ValueError(f"unknown curve op {op}")

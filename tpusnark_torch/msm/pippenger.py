@@ -63,9 +63,8 @@ def _take(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 @functools.lru_cache(maxsize=None)
 def get_msm(group: str, c: int, curve_name: str) -> "MSM":
     """Shared MSM engine per (group "g1" or "g2", window size, curve), with
-    the ops of tpusnark's CurveConfig for the curve."""
-    from tpusnark.curves.config import get_curve
-
+    the ops of the curve's CurveConfig."""
+    from ..curves.config import get_curve
     from ..curves.tcurve import curve_ops
     from ..fields.tfield import get_field
 
@@ -138,6 +137,12 @@ class MSM:
         self.n_windows = -(-(self.scalar_bits + 1) // c)
         self.nbuckets = 1 << (c - 1)
 
+    def strip_shape(self, m0: int) -> tuple[int, int]:
+        """(C strips, R rows) of the strip path over m0 records a window:
+        each of the R rows is one mixed add over n_windows * C lanes."""
+        C = min(self.strips, 1 << max(3, (m0 - 1).bit_length() - 6))
+        return C, -(-m0 // C)
+
     def __call__(self, points_affine, scalars_norm):
         """points: (X, Y, inf), coords (words, N); scalars: (words, N)
         NORMAL-form words. Returns a projective point with batch 1."""
@@ -204,8 +209,7 @@ class MSM:
         dev = inf.device
         use_strips = M0 >= self.strip_threshold
         if use_strips:
-            C = min(self.strips, 1 << max(3, (M0 - 1).bit_length() - 6))
-            R = -(-M0 // C)
+            C, R = self.strip_shape(M0)
             M = C * R
         else:
             M = M0

@@ -21,11 +21,10 @@ import functools
 
 import torch
 
-from tpusnark.fields.spec import FieldSpec
-from tpusnark.poly.domain import Domain, bit_reverse_perm
-
 from .. import kernels
+from ..fields.spec import FieldSpec
 from ..fields.tfield import _device_kind, _flat, canonical_device, get_field
+from .domain import Domain, bit_reverse_perm
 
 
 class NTT:

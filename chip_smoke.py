@@ -10,10 +10,19 @@ Phases, each printing its lines:
 then per curve (BW6-761, BLS12-377, BLS12-381, BN254):
   3. check every kernel instance of the curve against its plain PyTorch
      version (run on a CPU copy of the same seeded inputs) at the prove's
-     widths (the curve kernels over a strip row of its MSMs, windows x
-     strips lanes): exact equality mod p, with both times and the bound;
-  4. MSM with c = 16 on the strip path against a host sum from the curve's
-     host module: G1 at N = 1024, G2 at N = 256;
+     widths (the pointwise curve kernels over a strip row of its MSMs,
+     windows x strips lanes): exact equality mod p, with both times and the
+     bound. The MSM's fused kernels (strip pass, scan step, window Horner) run
+     at the prove's shapes: the strip passes over windows x strips lanes by
+     the prove's rows, on keys with long runs, DEAD keys, sign flips and
+     repeated points, against the step-by-step loop over the pointwise
+     kernels on the card (its CPU run would take minutes: 64 rows of 1-10 s)
+     and, at 8 strips a window, against the plain loop on the CPU; a
+     segmented and a fold scan step and the Horner over the curve's windows
+     against the plain versions on the CPU. Equality there is word for word;
+  4. MSMs against a host sum from the curve's host module: with c = 16 on
+     the strip path, G1 at N = 1024 and G2 at N = 256, and on the log-scan
+     path (N = 160, the window size of that N) both groups;
   5. Groth16 on a 2^17 - 8 constraint multiplication chain over the curve's
      r: compile, setup (seeded), prove, with phase times. The port's host
      verifier must accept the proof and reject a wrong public input (for
@@ -56,6 +65,7 @@ IMAD_PER_S = 16.75e12
 
 CSRC = "tpusnark_torch/csrc"
 JFIELD, JNTT, JCURVE = "tpusnark/fields/jfield.py", "tpusnark/poly/ntt.py", "tpusnark/curves/jcurve.py"
+JPIP = "tpusnark/msm/pippenger.py"
 # the tpusnark function each op replaces; add, sub and neg were XLA ops
 # there, the others reach the TPU kernel through fuse()
 REPLACES = {
@@ -71,12 +81,37 @@ REPLACES = {
     "g1_add_mixed": f"{JCURVE}:470",
     "g2_add_mixed": f"{JCURVE}:470",
 }
+# the fused MSM kernels replace the TPU kernel whose group law they run,
+# and absorb the tpusnark loop around it (strip_flush; fold_sum,
+# log_scan_buckets and small_weighted; the Horner scan over the windows)
+ABSORBS = {}
+for _g in ("g1", "g2"):
+    REPLACES[f"{_g}_strip_mixed"] = f"{JCURVE}:470"
+    ABSORBS[f"{_g}_strip_mixed"] = f"{JPIP}:420"
+    for _op, _loops in (("strip", ":420"), ("scan_step", ":371, :391, :491"), ("horner", ":658")):
+        REPLACES[f"{_g}_{_op}"] = f"{JCURVE}:466"
+        ABSORBS[f"{_g}_{_op}"] = JPIP + _loops
+# the pointwise mixed add runs once per scalar bit of setup's fixed-base
+# multiplication; the prove's mixed adds are all inside the strip kernel
+SETUP_ONLY_CURVE_OPS = ("g1_add_mixed", "g2_add_mixed")
+# Checked in phase 3 but on neither the setup's nor the prove's path at 2^17,
+# where G2 lies over Fp (no Fp2 inversion): neg[fp] then serves only the
+# MSM's log-scan path (96 < records < 2^15), which phase 4 drives.
+OFF_PATH_OPS = ("neg",)
+# per 2^17 prove: one strip pass over the bases and one Horner per MSM, and
+# at most this many launches of the B6 family (pointwise add, projective
+# strip pass, scan step, Horner) at any window count
+MSMS_PER_PROVE = 5
+MAX_B6_LAUNCHES = 450
 # base-field ops the prove never launches: setup's Fermat inversion and key
-# decode (to_affine, to_host) are the only base-field muls, add/subs and
-# from_monts outside the curve kernels. Checked in phase 3, launched by setup.
-SETUP_ONLY_OPS = ("mul", "add", "sub", "from_mont")
-# (the add and sub come from the Fp2 inversion of to_affine: BW6-761, whose G2
-# lies over Fp, has no such instances).
+# decode (to_affine, to_host) are the only base-field muls, add/subs, negs
+# and from_monts outside the curve kernels (the prove negated the gathered
+# bases with neg[fp] until the strip kernel took that over). Checked in
+# phase 3, launched by setup.
+SETUP_ONLY_OPS = ("mul", "add", "sub", "neg", "from_mont")
+# (the add, sub and neg come from the Fp2 inversion of to_affine: BW6-761,
+# whose G2 lies over Fp, has no add and no sub instance, and its neg is
+# OFF_PATH_OPS below).
 
 
 _POOL = None  # the verifier processes, once started
@@ -101,21 +136,27 @@ def say(msg: str) -> None:
 
 
 def kernel_table():
-    """instance -> (source, replaces), per curve; and the setup-only ones."""
+    """instance -> (source, replaces), per curve; the setup-only ones; and
+    the ones off the 2^17 path."""
     from tpusnark_torch import kernels
 
-    table, setup_only = {}, set()
+    table, setup_only, off_path = {}, set(), set()
     for curve, (_, fp) in kernels.CURVES.items():
         for name in kernels.instances(curve):
             op, arg = name[:-1].split("[")
-            if op.startswith("g"):
+            if op[3:] in kernels.MSM_KERNELS:
+                unit = kernels._tag(fp) if curve in kernels.G2_OVER_FP else f"{kernels._tag(fp)}_{op[:2]}"
+                src = f"{CSRC}/msm_{unit}.cu"
+            elif op.startswith("g"):
                 src = f"{CSRC}/curve_{kernels._tag(fp)}.cu"
             else:
                 src = f"{CSRC}/{'ntt' if op.startswith('butterfly') else 'field'}.cu"
             table[name] = (src, REPLACES[op])
-            if arg == fp and op in SETUP_ONLY_OPS:
+            if arg == fp and op in OFF_PATH_OPS and curve in kernels.G2_OVER_FP:
+                off_path.add(name)
+            elif (arg == fp and op in SETUP_ONLY_OPS) or op in SETUP_ONLY_CURVE_OPS:
                 setup_only.add(name)
-    return table, setup_only
+    return table, setup_only, off_path
 
 
 # ---------------------------------------------------------------- phase 1
@@ -245,7 +286,13 @@ def kernel_bound(words, lanes, rows_in, rows_out, products, extra_bytes=0, activ
     run's data (add_mixed's infinity lanes only copy)."""
     byts = (rows_in + rows_out) * 4 * words * lanes + extra_bytes
     ops = products * mont_imads(words) * (lanes if active is None else active)
-    t_bytes, t_ops = byts / HBM_BYTES_PER_S * 1e3, ops / IMAD_PER_S * 1e3
+    return bound_of(byts, ops)
+
+
+def bound_of(byts, imads):
+    """(bound_ms, bound_by): the larger of bytes over the card's memory rate
+    and integer multiply-adds over the card's rate."""
+    t_bytes, t_ops = byts / HBM_BYTES_PER_S * 1e3, imads / IMAD_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -397,10 +444,13 @@ def phase_kernels(torch, curve, np_rng, n_wires):
         )
 
     for name, r in results.items():
+        r["plain_device"] = "cpu"
+    results.update(phase_msm_kernels(torch, curve, np_rng, n_wires, dev))
+    for name, r in results.items():
         say(
             f"[3 check] {name:26s} lanes={r['lanes']:6d} mismatches={r['mismatches']} "
             f"kernel={r['ms']:.4f} ms bound={r['bound_ms']:.4f} ms ({r['bound_by']}) "
-            f"plain(cpu)={r['plain_ms']:.1f} ms"
+            f"plain({r['plain_device']})={r['plain_ms']:.1f} ms"
         )
     missing = sorted(set(kernels.instances(curve)) - set(results))
     if missing:
@@ -408,8 +458,249 @@ def phase_kernels(torch, curve, np_rng, n_wires):
     return results
 
 
+def _words_differ(torch, got, want):
+    """Lanes on which two lists of (words, *batch) word tensors, or (*batch)
+    key tensors, differ."""
+    bad = None
+    for g, w in zip(got, want):
+        d = g != w.to(g.device)
+        # keys (int64) have no word axis
+        d = d.reshape(-1) if g.dtype == torch.int64 else d.reshape(g.shape[0], -1).any(dim=0)
+        bad = d if bad is None else bad | d
+    return int(bad.sum())
+
+
+def strip_inputs(torch, np_rng, fp, fr, n0, fp2):
+    """Bases, scalars and an infinity mask (CPU tensors) for a strip pass over
+    n0 records a window: arbitrary coordinates (the formulas are polynomial
+    identities), a repeated point under a repeated scalar (a doubling inside
+    a key run), 300 records under one scalar (a run longer than a strip),
+    one-word scalars (DEAD keys in every upper window), zero scalars and
+    infinity inputs."""
+
+    def coord():
+        if fp2:
+            return tuple(torch.from_numpy(_lazy_words(np_rng, n0, fp.modulus, fp.n)) for _ in range(2))
+        return torch.from_numpy(_lazy_words(np_rng, n0, fp.modulus, fp.n))
+
+    def each(fn, x):
+        return tuple(fn(c) for c in x) if isinstance(x, tuple) else fn(x)
+
+    def repeat_point(a):
+        a[:, 8:12] = a[:, 7:8]
+        return a
+
+    X, Y = each(repeat_point, coord()), each(repeat_point, coord())
+    scalars = torch.from_numpy(_lazy_words(np_rng, n0, fr.modulus // 2, fr.n))
+    scalars[:, 8:12] = scalars[:, 7:8]
+    scalars[:, 100:400] = scalars[:, 99:100]
+    scalars[1:, 1000:1200] = 0
+    inf = torch.from_numpy(np_rng.random(n0) < 0.01)
+    return X, Y, scalars, inf
+
+
+def phase_msm_kernels(torch, curve, np_rng, n_wires, dev):
+    """The MSM's fused kernels of one curve (csrc/msm.cuh) at the shapes of a
+    prove over `n_wires` wires, each against its plain version."""
+    from tpusnark_torch.curves.config import get_curve
+    from tpusnark_torch.curves.tcurve import curve_ops
+    from tpusnark_torch.fields.tfield import get_field
+    from tpusnark_torch.msm.pippenger import _pad_last, _take, get_msm_for, tree_map
+
+    cfg = get_curve(curve)
+    fr, fp = get_field(cfg.fr_spec), get_field(cfg.fp_spec)
+    results = {}
+
+    def to(x, device):
+        return tree_map(lambda a: a.to(device), x)
+
+    def flat(pt):
+        return [c for x in pt for c in (x if isinstance(x, tuple) else (x,))]
+
+    def record(name, run_kernel, want, plain_ms, plain_device, lanes, bound, reps, also=""):
+        got = run_kernel()
+        torch.cuda.synchronize()
+        n_bad = _words_differ(torch, got, want)
+        if n_bad:
+            fail(f"kernel {name} disagrees with its plain version on {n_bad} lanes{also}")
+        results[name] = dict(
+            lanes=lanes,
+            mismatches=0,
+            max_abs_err=0.0,
+            ms=_time_cuda(torch, run_kernel, reps),
+            plain_ms=plain_ms,
+            plain_device=plain_device,
+            bound_ms=bound[0],
+            bound_by=bound[1],
+        )
+
+    for group, ops in zip(("g1", "g2"), curve_ops(curve)):
+        msm = get_msm_for(group, n_wires, curve)
+        W, c = msm.n_windows, msm.c
+        C, R = msm.strip_shape(n_wires)
+        sent = msm.nbuckets + 1
+        d = 2 if ops.fp2 else 1
+        imads = (3 if ops.fp2 else 1) * mont_imads(fp.n)
+        b3_products = 0 if (not ops.fp2 and ops.fa.b3 == 9) else 2
+        row = 4 * fp.n * d  # bytes of one coordinate
+
+        def strip_case(n0, C, R):
+            X, Y, scalars, inf = strip_inputs(torch, np_rng, fp, fr, n0, ops.fp2)
+            skey, order, ssgn = msm._sort_records(scalars[:, None, :], inf, C * R)
+            return (X, Y), skey, order, ssgn
+
+        def run_strip_mixed(XY, skey, order, ssgn, C, R):
+            fk, fp_ = msm._strip_mixed(skey, order, ssgn, XY, 1, C, R, sent)
+            return [fk] + flat(fp_)
+
+        def strip_loop(XY, skey, order, ssgn, C, R):
+            """The strip pass step by step (one pointwise kernel per row on
+            the card, the plain group law on the CPU)."""
+            Xg, Yg = msm._gather_bases(XY, 1, C * R, order)
+            Yg = ops.fa.select(ssgn, ops.fa.neg(Yg), Yg)
+            fk, fp_ = msm._strip_flush(skey, (Xg, Yg), C, R, sent, mixed=True)
+            return [fk] + flat(fp_)
+
+        def adds_of(skey, C, R):
+            k2 = skey.reshape(skey.shape[0], C, R)
+            return int((k2[..., 1:] == k2[..., :-1]).sum())
+
+        # --- the strip pass over the bases: B5
+        # cut to 8 strips a window against the plain loop on the CPU
+        XY_c, skey_c, order_c, ssgn_c = strip_case(8 * R - 12, 8, R)
+        want_small, small_ms = _time_host(lambda: strip_loop(XY_c, skey_c, order_c, ssgn_c, 8, R))
+        got_small = run_strip_mixed(to(XY_c, dev), skey_c.to(dev), order_c.to(dev), ssgn_c.to(dev), 8, R)
+        n_bad = _words_differ(torch, got_small, want_small)
+        if n_bad:
+            fail(f"kernel {group}_strip_mixed[{curve}] disagrees with the plain CPU loop on {n_bad} records")
+        say(
+            f"[3 check] {group}_strip_mixed[{curve}] at {W} x 8 strips x {R} rows equals the plain CPU loop "
+            f"(plain {small_ms:.1f} ms)"
+        )
+        # the prove's shape against the loop over the pointwise kernels
+        XY, skey, order, ssgn = (to(x, dev) for x in strip_case(n_wires, C, R))
+        want = strip_loop(XY, skey, order, ssgn, C, R)  # also warms the allocator for the timed run
+        torch.cuda.synchronize()
+        _, loop_ms = _time_host(lambda: (strip_loop(XY, skey, order, ssgn, C, R), torch.cuda.synchronize())[0])
+        adds = adds_of(skey, C, R)
+        n_rec = W * (R + 1) * C
+        byts = 17 * W * C * R + 2 * row * n_wires + n_rec * (8 + 3 * row)
+        record(
+            f"{group}_strip_mixed[{curve}]",
+            lambda: run_strip_mixed(XY, skey, order, ssgn, C, R),
+            want,
+            loop_ms,
+            "cuda",
+            W * C,
+            bound_of(byts, adds * (11 + b3_products) * imads),
+            3,
+        )
+        fkeys, fpts = want[0], msm.ops._point(want[1:])
+        del want
+
+        # --- the strip pass over projective records: B6, on the flush
+        # records above, as weighted_from_records re-sorts them (hi part)
+        K = min(fkeys.shape[-1], msm.nbuckets + C)
+        ridx = torch.argsort(fkeys, dim=-1, stable=True)[:, :K]
+        skey2 = torch.gather(fkeys, -1, ridx) >> 8
+        pts2 = tree_map(lambda a: _take(a, ridx), fpts)
+        del fkeys, fpts
+        C2 = max(128, min(1024, 1 << max(0, (K - 1).bit_length() - 5)))
+        R2 = -(-K // C2)
+        sent2 = (msm.nbuckets >> 8) + 1
+        skey2 = _pad_last(skey2, C2 * R2, sent2)
+        pts2 = tree_map(lambda a: _pad_last(a, C2 * R2), pts2)
+
+        def run_strip(skey, pts, C, R):
+            fk, fp_ = msm._strip(skey, pts, C, R, sent2)
+            return [fk] + flat(fp_)
+
+        def strip_proj_loop(skey, pts, C, R):
+            fk, fp_ = msm._strip_flush(skey, pts, C, R, sent2, mixed=False)
+            return [fk] + flat(fp_)
+
+        # cut to the first 8 strips of every window against the plain CPU loop
+        sk_c = skey2[:, : 8 * R2].contiguous()
+        pt_c = tree_map(lambda a: a[..., : 8 * R2].contiguous(), pts2)
+        want_small, small_ms = _time_host(lambda: strip_proj_loop(sk_c.cpu(), to(pt_c, "cpu"), 8, R2))
+        n_bad = _words_differ(torch, run_strip(sk_c, pt_c, 8, R2), want_small)
+        if n_bad:
+            fail(f"kernel {group}_strip[{curve}] disagrees with the plain CPU loop on {n_bad} records")
+        say(
+            f"[3 check] {group}_strip[{curve}] at {W} x 8 strips x {R2} rows equals the plain CPU loop "
+            f"(plain {small_ms:.1f} ms)"
+        )
+        want = strip_proj_loop(skey2, pts2, C2, R2)
+        torch.cuda.synchronize()
+        _, loop_ms = _time_host(lambda: (strip_proj_loop(skey2, pts2, C2, R2), torch.cuda.synchronize())[0])
+        adds = adds_of(skey2, C2, R2)
+        byts = W * C2 * R2 * (8 + 3 * row) + W * (R2 + 1) * C2 * (8 + 3 * row)
+        record(
+            f"{group}_strip[{curve}]",
+            lambda: run_strip(skey2, pts2, C2, R2),
+            want,
+            loop_ms,
+            "cuda",
+            W * C2,
+            bound_of(byts, adds * (12 + b3_products) * imads),
+            3,
+        )
+        fkeys2, fpts2 = want[0], msm.ops._point(want[1:])
+        del want, pts2
+
+        # --- scan steps: B6. A segmented step over the strip pass's
+        # survivors (shift -8 under the keys) and a fold step over 256 slots
+        # a window, against the plain versions on the CPU
+        K2 = min(fkeys2.shape[-1], (msm.nbuckets >> 8) + C2)
+        ridx = torch.argsort(fkeys2, dim=-1, stable=True)[:, :K2]
+        skey3 = torch.gather(fkeys2, -1, ridx)
+        pts3 = tree_map(lambda a: _take(a, ridx), fpts2)
+        del fkeys2, fpts2
+        F = min(256, K2)  # the fold of weighted_from_records' 256 lo slots
+        fold = tree_map(lambda a: a[..., :F].reshape(a.shape[0], W, 1, F).contiguous(), pts3)
+        want_seg, seg_ms = _time_host(lambda: flat(msm._scan_step(to(pts3, "cpu"), -8, K2, skey3.cpu())))
+        want_fold, fold_ms = _time_host(lambda: flat(msm._scan_step(to(fold, "cpu"), F // 2, F)))
+        seg_adds = int((skey3[:, 8:] == skey3[:, :-8]).sum())
+        seg_lanes, fold_lanes = W * K2, W * F
+        if _words_differ(torch, flat(msm._scan_step(fold, F // 2, F)), want_fold):
+            fail(f"kernel {group}_scan_step[{curve}] disagrees with the plain fold step")
+        fold_kernel_ms = _time_cuda(torch, lambda: msm._scan_step(fold, F // 2, F))
+        say(
+            f"[3 check] {group}_scan_step[{curve}] fold step over {fold_lanes} lanes equals the plain CPU step: "
+            f"kernel={fold_kernel_ms:.4f} ms plain(cpu)={fold_ms:.1f} ms"
+        )
+        record(
+            f"{group}_scan_step[{curve}]",
+            lambda: flat(msm._scan_step(pts3, -8, K2, skey3)),
+            want_seg,
+            seg_ms,
+            "cpu",
+            seg_lanes,
+            bound_of(seg_lanes * (8 + 6 * row), seg_adds * (12 + b3_products) * imads),
+            20,
+        )
+
+        # --- the window Horner: B6, one result over the curve's windows
+        ws = tree_map(lambda a: a[..., :1].contiguous(), pts3)
+        want_h, h_ms = _time_host(lambda: flat(msm._horner(to(ws, "cpu"))))
+        record(
+            f"{group}_horner[{curve}]",
+            lambda: flat(msm._horner(ws)),
+            want_h,
+            h_ms,
+            "cpu",
+            1,
+            bound_of((W + 1) * 3 * row, (W - 1) * (c + 1) * (12 + b3_products) * imads),
+            5,
+        )
+    return results
+
+
 # ---------------------------------------------------------------- phase 4
-def phase_msm(torch, dev, curve, sizes=(1024, 256)):
+def phase_msm(torch, dev, curve, sizes=(1024, 256), small=160):
+    """MSMs against host sums: per group one at c = 16 on the strip path
+    (`sizes` points) and one of `small` points at its own window size on the
+    log-scan path (the segmented scan and the bucket weighting)."""
     from tpusnark_torch.curves.config import get_curve
     from tpusnark_torch.curves.encoding import (
         g1_from_device_proj,
@@ -419,7 +710,7 @@ def phase_msm(torch, dev, curve, sizes=(1024, 256)):
     )
     from tpusnark_torch.curves.tcurve import curve_ops
     from tpusnark_torch.fields.tfield import get_field
-    from tpusnark_torch.msm.pippenger import MSM
+    from tpusnark_torch.msm.pippenger import MSM, auto_c
 
     cfg = get_curve(curve)
     host, R = cfg.host, cfg.host.R
@@ -432,31 +723,34 @@ def phase_msm(torch, dev, curve, sizes=(1024, 256)):
 
     # a G2 over Fp (BW6-761) has plain int points: the G1 encoders
     g2_codec = (g1_to_device, g1_from_device_proj) if cfg.g2_over_fp else (g2_to_device, dec2)
-    for label, G, ops, n, enc, dec in (
+    for label, G, ops, size, enc, dec in (
         ("G1", host.G1, g1, sizes[0], g1_to_device, g1_from_device_proj),
         ("G2", host.G2, g2, sizes[1], *g2_codec),
     ):
-        # points i*g with known discrete logs, plus an infinity, duplicates
-        # and a negation; zero scalars included
-        g = G.generator()
-        logs, pts, P = [], [], None
-        for i in range(1, n - 3):
-            P = G.add(P, g)
-            logs.append(i)
-            pts.append(P)
-        logs += [0, logs[0], logs[0], (-logs[1]) % R]
-        pts += [None, pts[0], pts[0], G.neg(pts[1])]
-        scs = [rng.randrange(R) for _ in range(n - 4)] + [7, 0, 5, 1]
-        scs[3] = 0
-        want = G.mul(g, sum(s * d for s, d in zip(scs, logs)) % R)
-        msm = MSM(ops, fr, c=16, strip_threshold=128)
-        t0 = time.perf_counter()
-        out = msm(enc(pts, fp, device=dev), fr.encode(scs, mont=False, device=dev))
-        got = dec(out, fp)[0]
-        dt = time.perf_counter() - t0
-        if got != want:
-            fail(f"MSM {curve} {label} N={n} c=16 strip path disagrees with the host sum")
-        say(f"[4 msm] {curve} {label} N={n} c=16 strip path matches the host sum ({dt:.2f} s)")
+        for n, msm, path in (
+            (size, MSM(ops, fr, c=16, strip_threshold=128), "c=16 strip path"),
+            (small, MSM(ops, fr, c=auto_c(small)), f"c={auto_c(small)} log-scan path"),
+        ):
+            # points i*g with known discrete logs, plus an infinity, duplicates
+            # and a negation; zero scalars included
+            g = G.generator()
+            logs, pts, P = [], [], None
+            for i in range(1, n - 3):
+                P = G.add(P, g)
+                logs.append(i)
+                pts.append(P)
+            logs += [0, logs[0], logs[0], (-logs[1]) % R]
+            pts += [None, pts[0], pts[0], G.neg(pts[1])]
+            scs = [rng.randrange(R) for _ in range(n - 4)] + [7, 0, 5, 1]
+            scs[3] = 0
+            want = G.mul(g, sum(s * d for s, d in zip(scs, logs)) % R)
+            t0 = time.perf_counter()
+            out = msm(enc(pts, fp, device=dev), fr.encode(scs, mont=False, device=dev))
+            got = dec(out, fp)[0]
+            dt = time.perf_counter() - t0
+            if got != want:
+                fail(f"MSM {curve} {label} N={n} {path} disagrees with the host sum")
+            say(f"[4 msm] {curve} {label} N={n} {path} matches the host sum ({dt:.2f} s)")
 
 
 # ---------------------------------------------------------------- phase 5
@@ -581,12 +875,15 @@ def phase_groth16(torch, dev, curve, pool, cs, assign, compile_s):
     return setup_launches, launches, pending
 
 
-def check_launches(curve, setup_only, setup_launches, launches):
+def check_launches(curve, setup_only, off_path, setup_launches, launches):
     """Every instance of the curve's path ran in its run: the prove path's
     in the prove, the setup-only ones in the setup and not in the prove."""
     from tpusnark_torch import kernels
 
-    names = kernels.instances(curve)
+    names = [k for k in kernels.instances(curve) if k not in off_path]
+    stray = [k for k in kernels.instances(curve) if k in off_path and launches[k] + setup_launches[k] > 0]
+    if stray:
+        fail(f"{curve}: kernels listed as off the path were launched: {stray}")
     idle = [k for k in names if k not in setup_only and launches[k] <= 0]
     if idle:
         fail(f"{curve}: kernels of the prove path never launched by the prove: {idle}")
@@ -599,9 +896,22 @@ def check_launches(curve, setup_only, setup_launches, launches):
     other = [k for k in kernels.LAUNCHES if k not in names and launches[k] + setup_launches[k] > 0]
     if other:
         fail(f"{curve}: kernels of another curve ran in its path: {other}")
+    strips = [launches[f"{g}_strip_mixed[{curve}]"] for g in ("g1", "g2")]
+    horners = [launches[f"{g}_horner[{curve}]"] for g in ("g1", "g2")]
+    if sum(strips) != MSMS_PER_PROVE or sum(horners) != MSMS_PER_PROVE:
+        fail(f"{curve}: {MSMS_PER_PROVE} MSMs took {strips} strip passes over the bases and {horners} Horner launches")
+    b6 = sum(launches[f"{g}_{op}[{curve}]"] for g in ("g1", "g2") for op in ("add", "strip", "scan_step", "horner"))
+    if b6 > MAX_B6_LAUNCHES:
+        fail(f"{curve}: {b6} launches of the B6 family in one prove, more than {MAX_B6_LAUNCHES}")
+    say(f"[6 launches] {curve} prove: B5 family {sum(strips)}, B6 family {b6}")
     say(f"[6 launches] {curve} prove: " + " ".join(f"{k}={launches[k]}" for k in names if k not in setup_only))
     say(f"[6 launches] {curve} setup: " + " ".join(f"{k}={setup_launches[k]}" for k in names))
     say(f"[6 launches] {curve} setup only (not in the prove): " + " ".join(k for k in names if k in setup_only))
+    if any(k in off_path for k in kernels.instances(curve)):
+        say(
+            f"[6 launches] {curve} off the 2^17 path (held against the plain version only): "
+            + " ".join(k for k in kernels.instances(curve) if k in off_path)
+        )
 
 
 # ---------------------------------------------------------------- main
@@ -622,7 +932,7 @@ def run() -> None:
 
     pool = start_workers()
     phase_build()
-    table, setup_only = kernel_table()
+    table, setup_only, off_path = kernel_table()
     dev = torch.device("cuda")
     np_rng = np.random.default_rng(SEED)
     checks, runs, pending = {}, {}, {}
@@ -634,7 +944,7 @@ def run() -> None:
         phase_msm(torch, dev, curve)
         setup_launches, launches, pending[curve] = phase_groth16(torch, dev, curve, pool, cs, assign, compile_s)
         runs[curve] = (setup_launches, launches)
-        check_launches(curve, setup_only, setup_launches, launches)
+        check_launches(curve, setup_only, off_path, setup_launches, launches)
     missing = sorted(set(kernels.LAUNCHES) - set(checks))
     if missing:
         fail(f"kernels not checked: {missing}")
@@ -647,6 +957,8 @@ def run() -> None:
     rows = []
     for curve, (setup_launches, launches) in runs.items():
         for name in kernels.instances(curve):
+            if name in off_path:
+                continue
             source, replaces = table[name]
             run = "setup" if name in setup_only else "prove"
             c = checks[name]
@@ -662,9 +974,11 @@ def run() -> None:
                     max_abs_err=c["max_abs_err"],
                     ms=c["ms"],
                     plain_ms=c["plain_ms"],
+                    plain_device=c["plain_device"],
                     bound_ms=c["bound_ms"],
                     bound_by=c["bound_by"],
                     library_ms=None,  # no PyTorch call computes a multi-word modular product
+                    **({"absorbs": ABSORBS[op]} if (op := name.split("[")[0]) in ABSORBS else {}),
                 )
             )
     say(f"[7 done] {time.perf_counter() - t_start:.1f} s in all")

@@ -19,6 +19,7 @@ import argparse
 import json
 import os
 import random
+import re
 import sys
 import tempfile
 import time
@@ -63,10 +64,12 @@ def profile_one(torch, prove_once):
             continue
         spans.append((ev["ts"], ev["dur"]))
         name = ev["name"].split("<")[0].split("(")[0][:60] if ev["cat"] == "kernel" else ev["cat"]
-        if "k_add" in ev["name"]:  # the curve kernels: keep the group
-            name = ("k_add_mixed" if "k_add_mixed" in ev["name"] else "k_add") + (
-                "<G2F>" if "G2F" in ev["name"] else "<G1F>"
-            )
+        m = re.search(r"ts::(k_\w+)<ts::(G[12]F)", ev["name"])
+        if m:  # the curve and MSM kernels: keep the group, and which strip pass
+            kind = m.group(1)
+            if kind == "k_strip" and ev["name"].split("(")[0].endswith("true>"):
+                kind = "k_strip_mixed"
+            name = f"{kind}<{m.group(2)}>"
         n, ms = kernels.get(name, (0, 0.0))
         kernels[name] = (n + 1, ms + ev["dur"] / 1e3)
     return wall, merged_busy_us(spans) / 1e6, kernels
@@ -117,7 +120,7 @@ def main() -> None:
             f"port kernel launches={launched} peak memory={peak:.3f} GB",
             flush=True,
         )
-        for name, (n, ms) in sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:12]:
+        for name, (n, ms) in sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:14]:
             print(f"[{card}] {curve}   {name:60s} launches={n:6d} ms={ms:.3f}", flush=True)
         del pk
         torch.cuda.empty_cache()

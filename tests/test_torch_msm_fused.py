@@ -1,0 +1,225 @@
+"""The MSM's fused phases (tpusnark_torch.msm.pippenger: _strip_mixed, _strip,
+_scan_step, _horner; one kernel launch each on the card, csrc/msm.cuh) on CPU
+tensors, where they are the plain versions, against what the kernels are
+specified to compute: one lane at a time, with Python control flow, as a
+kernel thread walks its strip (restart at a key boundary, add inside a run,
+a flush record per row), one position at a time for a scan step, and the host
+curve's integers for the window Horner. Over BN254, BLS12-381, BLS12-377 and
+BW6-761 and both groups. Exact: coordinates are compared word for word (the
+Horner as affine points)."""
+
+import numpy as np
+import pytest
+import torch
+
+from tpusnark_torch.curves.config import get_curve
+from tpusnark_torch.curves.encoding import (
+    g1_from_device_proj,
+    g1_to_device,
+    g2_from_device_proj,
+    g2_to_device,
+)
+from tpusnark_torch.curves.tcurve import CurveOps, curve_ops
+from tpusnark_torch.fields.tfield import get_field
+from tpusnark_torch.msm.pippenger import MSM, tree_map
+
+torch.set_num_threads(1)  # the suite's workers fill the cores already
+
+CASES = [(c, g) for c in ("bn254", "bls12-381", "bls12-377", "bw6-761") for g in ("g1", "g2")]
+IDS = [f"{c}-{g}" for c, g in CASES]
+
+
+def engine(curve, group, c=5):
+    cfg = get_curve(curve)
+    ops = curve_ops(curve)[0 if group == "g1" else 1]
+    return cfg, ops, MSM(ops, get_field(cfg.fr_spec), c=c, strips=4)
+
+
+def lazy_words(rng, shape, p, words):
+    """Arbitrary coordinates in [0, 2p): the group law is polynomial, so the
+    comparisons do not need points of the curve."""
+    top = ((2 * p).bit_length() - 1) // 32
+    w = rng.integers(0, 1 << 32, size=(words, *shape), dtype=np.uint64)
+    w[top] = rng.integers(0, (2 * p) >> (32 * top), size=shape, dtype=np.uint64)
+    w[top + 1 :] = 0
+    return torch.from_numpy(w.astype(np.uint32).view(np.int32))
+
+
+def coordinate(rng, ops, shape):
+    f = ops.fa.f
+    if ops.fp2:
+        return (lazy_words(rng, shape, f.modulus, f.n), lazy_words(rng, shape, f.modulus, f.n))
+    return lazy_words(rng, shape, f.modulus, f.n)
+
+
+def lane(pt, *idx):
+    """One lane of a point (or coordinate pair) as batch-1 tensors."""
+    return tree_map(lambda a: a[(slice(None), *idx)].reshape(a.shape[0], 1), pt)
+
+
+def put(dst, src, *idx):
+    tree_map(lambda d, s: d.__setitem__((slice(None), *idx), s[:, 0]), dst, src)
+
+
+def same_words(a, b):
+    ok = []
+    tree_map(lambda x, y: ok.append(torch.equal(x, y)), a, b)
+    return all(ok)
+
+
+def walk_strips(plain, skey, point_of, like, C, R, sent, mixed):
+    """What the strip kernel computes, one lane (window, strip) at a time.
+    like: one coordinate with batch 1."""
+    W = skey.shape[0]
+    fkeys = torch.zeros((W, (R + 1) * C), dtype=torch.int64)
+    fpts = tuple(tree_map(lambda a: torch.zeros((a.shape[0], W, (R + 1) * C), dtype=a.dtype), like) for _ in range(3))
+    for w in range(W):
+        for s in range(C):
+            acc, acc_key = plain.identity_like(like), sent
+            for r in range(R):
+                kk = int(skey[w, s * R + r])
+                fkeys[w, r * C + s] = sent if kk == acc_key else acc_key
+                put(fpts, acc, w, r * C + s)
+                pt = point_of(w, s * R + r)
+                if kk == acc_key:
+                    acc = plain.add_mixed(acc, pt) if mixed else plain.add(acc, pt)
+                else:
+                    acc = plain.from_affine(pt) if mixed else pt
+                acc_key = kk
+            fkeys[w, R * C + s] = acc_key
+            put(fpts, acc, w, R * C + s)
+    return fkeys, fpts
+
+
+@pytest.mark.parametrize("curve,group", CASES, ids=IDS)
+def test_strip_pass_over_bases_equals_a_lane_by_lane_walk(curve, group):
+    """DEAD keys (a zero scalar, an infinity input, the padding), sign flips,
+    a run longer than a strip's rows and a repeated point inside a run."""
+    cfg, ops, msm = engine(curve, group)
+    rng = np.random.default_rng(31)
+    fr = msm.fr
+    n0, C, R, W = 20, 4, 6, 2
+    X, Y = coordinate(rng, ops, (n0,)), coordinate(rng, ops, (n0,))
+    for a in [t for xy in (X, Y) for t in (xy if ops.fp2 else (xy,))]:
+        a[:, 9] = a[:, 8]
+    scalars = lazy_words(rng, (n0,), fr.modulus // 2, fr.n)
+    scalars[:, 8:15] = scalars[:, 8:9]  # one key for seven records, two of them the same point
+    scalars[:, 5] = 0
+    inf = torch.zeros(n0, dtype=torch.bool)
+    inf[7] = True
+    skey, order, ssgn = (t[:W].contiguous() for t in msm._sort_records(scalars[:, None, :], inf, C * R))
+    dead = msm.nbuckets
+    sent = dead + 1
+    assert int((skey == dead).sum()) >= W * (C * R - n0 + 2) and bool(ssgn.any()) and not bool(ssgn.all())
+    k2, o2 = skey.reshape(W, C, R), order.reshape(W, C, R)
+    doubled = (k2[..., 1:] == k2[..., :-1]) & (o2[..., :-1] == 8) & (o2[..., 1:] == 9)
+    assert bool(doubled.any()), "the repeated point must meet itself inside a run"
+
+    plain = CurveOps(ops.fa)
+    zero = tree_map(lambda a: torch.zeros_like(a[:, :1]), X)
+
+    def point_of(w, j):
+        i = int(order[w, j])
+        if i >= n0:
+            return (zero, zero)
+        x, y = lane(X, i), lane(Y, i)
+        return (x, plain.fa.neg(y) if bool(ssgn[w, j]) else y)
+
+    want_keys, want_pts = walk_strips(plain, skey, point_of, lane(X, 0), C, R, sent, mixed=True)
+    got_keys, got_pts = msm._strip_mixed(skey, order, ssgn, (X, Y), 1, C, R, sent)
+    assert torch.equal(got_keys, want_keys)
+    assert same_words(got_pts, want_pts)
+
+
+@pytest.mark.parametrize("curve,group", CASES, ids=IDS)
+def test_strip_pass_over_records_equals_a_lane_by_lane_walk(curve, group):
+    cfg, ops, msm = engine(curve, group)
+    rng = np.random.default_rng(32)
+    C, R, W, sent = 4, 5, 2, 9
+    skey = torch.from_numpy(np.sort(rng.integers(0, 6, size=(W, C * R)), axis=-1))
+    skey[:, -3:] = sent  # padding
+    skey[0, :8] = 2  # a run across a strip boundary
+    pts = tuple(coordinate(rng, ops, (W, C * R)) for _ in range(3))
+    plain = CurveOps(ops.fa)
+    want_keys, want_pts = walk_strips(plain, skey, lambda w, j: lane(pts, w, j), lane(pts[0], 0, 0), C, R, sent, mixed=False)
+    got_keys, got_pts = msm._strip(skey, pts, C, R, sent)
+    assert torch.equal(got_keys, want_keys)
+    assert same_words(got_pts, want_pts)
+
+
+# one step of each log-step loop: _fold_sum (shift = half of the width left),
+# _small_weighted's suffix scan (shift = d, the whole axis) and
+# _log_scan_buckets' segmented scan (shift = -d under the keys)
+STEPS = [("fold", 3, 5, False), ("suffix", 2, 7, False), ("segmented", -2, 7, True)]
+
+
+@pytest.mark.parametrize("step", STEPS, ids=[s[0] for s in STEPS])
+@pytest.mark.parametrize("curve,group", CASES, ids=IDS)
+def test_scan_step_equals_a_position_by_position_walk(curve, group, step):
+    _, shift, width, keyed = step
+    cfg, ops, msm = engine(curve, group)
+    rng = np.random.default_rng(33)
+    W, m = 2, 7
+    pts = tuple(coordinate(rng, ops, (W, m)) for _ in range(3))
+    key = torch.tensor([[0, 0, 0, 1, 1, 1, 1], [2, 3, 3, 3, 3, 3, 4]]) if keyed else None
+    plain = CurveOps(ops.fa)
+    want = tree_map(torch.clone, pts)
+    for w in range(W):
+        for i in range(m):
+            j = i + shift
+            if 0 <= j < width and (key is None or int(key[w, j]) == int(key[w, i])):
+                put(want, plain.add(lane(pts, w, i), lane(pts, w, j)), w, i)
+    assert same_words(msm._scan_step(pts, shift, width, key), want)
+
+
+def host_points(cfg, group, n):
+    G = cfg.host.G1 if group == "g1" else cfg.host.G2
+    g, out, P = G.generator(), [], None
+    for _ in range(n):
+        P = G.add(P, g)
+        out.append(P)
+    return G, out
+
+
+@pytest.mark.parametrize("c", [5, 16])
+@pytest.mark.parametrize("curve,group", CASES, ids=IDS)
+def test_horner_over_the_windows_equals_the_host_sum(curve, group, c):
+    """sum_w 2^(c w) S_w for two results, over the curve's window count at
+    c = 5 and at c = 16 (the prove's), with an identity among the S_w."""
+    cfg, ops, msm = engine(curve, group, c)
+    W, k = msm.n_windows, 2
+    fp = ops.fa.f
+    G, pts = host_points(cfg, group, W * k)
+    pts[3] = None
+    enc = g2_to_device if ops.fp2 else g1_to_device
+    wsums = tree_map(lambda a: a.reshape(a.shape[0], W, k), ops.from_affine(enc(pts, fp)))
+    got = msm._horner(wsums)
+    if ops.fp2:
+        got = g2_from_device_proj(got, fp, cfg.host.Fp2, cfg.fp2_q)
+    else:
+        got = g1_from_device_proj(got, fp)
+    want = []
+    for j in range(k):
+        acc = None
+        for w in range(W - 1, -1, -1):
+            acc = G.add(G.mul(acc, 1 << c) if acc is not None else None, pts[w * k + j])
+        want.append(acc)
+    assert got == want
+
+
+def test_fused_kernels_take_cuda_tensors_only():
+    """A CPU tensor reaches no kernel: the wrappers refuse it before any
+    build, and the MSM's phases take their plain versions instead."""
+    cfg, ops, msm = engine("bn254", "g1")
+    rng = np.random.default_rng(34)
+    pts = tuple(coordinate(rng, ops, (2, 4)) for _ in range(3))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ops.scan_step(pts, 1, 4)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ops.horner(pts, 5)
+    key = torch.zeros((2, 4), dtype=torch.int64)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ops.strip(key, pts, 2, 2, 9)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        bases = (coordinate(rng, ops, (4,)), coordinate(rng, ops, (4,)))
+        ops.strip_mixed(key, key, key == 1, bases, 4, 2, 2, 9)

@@ -11,8 +11,11 @@ elements ``(words, *batch)`` (G2: ``(c0, c1)`` tuples of them); points are
 it is the plain version of the two curve kernels. ``KernelCurveOps`` (in place
 of tpusnark's ``FusedCurveOps``) sends ``add`` and ``add_mixed`` of CUDA
 tensors to the curve's kernels (``csrc/curve_<curve>.cu``) and everything on
-the CPU to ``CurveOps``. ``curve_ops(name)`` builds both groups from the
-curve's ``CurveConfig``.
+the CPU to ``CurveOps``. It also gives the MSM its fused kernels
+(``csrc/msm.cuh``: ``strip_mixed``, ``strip``, ``scan_step``, ``horner``),
+which take CUDA tensors only: their plain versions are the MSM's own loops
+over ``CurveOps`` (``msm/pippenger.py``). ``curve_ops(name)`` builds both
+groups from the curve's ``CurveConfig``.
 """
 
 from __future__ import annotations
@@ -311,6 +314,7 @@ class KernelCurveOps(CurveOps):
             if group == "g1" and (fa.b3 == 9) != (3 * cfg.g1_b == 9):
                 raise ValueError(f"the {curve} G1 kernels are built for 3b = {3 * cfg.g1_b}")
         self._b3_words = None
+        self._fused = None
 
     def _b3(self):
         """The uint32 words of 3b (G1) or 3b' (G2: c0 then c1), Montgomery."""
@@ -321,21 +325,71 @@ class KernelCurveOps(CurveOps):
             self._b3_words = [int(w) for w in words]
         return self._b3_words
 
+    def _components(self, coords):
+        return [c for x in coords for c in self.fa.components(x)]
+
+    def _point(self, comps):
+        d = len(comps) // 3
+        return tuple(self.fa.from_components(comps[i * d : (i + 1) * d]) for i in range(3))
+
     def _run(self, op, coords, inf=None):
-        fa = self.fa
-        comps = [c for x in coords for c in fa.components(x)]
-        tensors = torch.broadcast_tensors(*comps)
+        tensors = torch.broadcast_tensors(*self._components(coords))
         batch = tensors[0].shape[1:]
         flat = [_flat(t) for t in tensors]
         if inf is not None:
             inf = inf.expand(batch).reshape(-1).contiguous()
-        outs = kernels.curve_op(op, self.group == "g2", fa.f.spec, flat, self._b3(), inf=inf)
-        outs = [o.view((o.shape[0],) + tuple(batch)) for o in outs]
-        d = len(fa.components(coords[0]))
-        return tuple(fa.from_components(outs[i * d : (i + 1) * d]) for i in range(3))
+        outs = kernels.curve_op(op, self.group == "g2", self.fa.f.spec, flat, self._b3(), inf=inf)
+        return self._point([o.view((o.shape[0],) + tuple(batch)) for o in outs])
 
     def _on_cuda(self, p):
         return self.fa.components(p[0])[0].device.type == "cuda"
+
+    # ---- the MSM's fused kernels: CUDA tensors only
+    def _msm_kernels(self) -> kernels.MsmKernels:
+        """The group's fused kernels, with their launch block (3b and 1 in
+        Montgomery form) built once."""
+        if self._fused is None:
+            f = self.fa.f
+            one = f.one("cpu")
+            ones = (one, torch.zeros_like(one)) if self.fp2 else (one,)
+            one_words = [int(w) for w in torch.cat(ones).numpy().view("uint32")]
+            self._fused = kernels.MsmKernels(f.spec, self.group == "g2", self._b3(), one_words)
+        return self._fused
+
+    def strip_mixed(self, skey, order, sign, XY, n_records, C, R, sent):
+        """kernels.MsmKernels.strip_mixed over the affine bases XY = (X, Y),
+        each (words, N0). The kernel gathers the bases in the sort's order, so
+        it is handed a point-major image of them, (N0, components, words) with
+        all words of a point contiguous, built here with one copy: a gathered
+        point is then a few memory sectors, not one per word (1.05-2.1 times
+        faster, see csrc/msm.cuh)."""
+        comps = self._components(XY)
+        image = torch.stack([c.t() for c in comps], dim=1).contiguous()
+        views = [image[:, i, :].t() for i in range(len(comps))]
+        fkeys, outs = self._msm_kernels().strip_mixed(skey, order, sign, views, n_records, C, R, sent)
+        return fkeys, self._point(outs)
+
+    def strip(self, skey, pts, C, R, sent):
+        """kernels.MsmKernels.strip over sorted projective records, skey (W,
+        C*R) and coordinates (words, W, C*R). A strip's rows are contiguous
+        there, so the lanes of a warp would read 4R bytes apart: the kernel
+        is handed a copy with a row's lanes side by side."""
+
+        def by_rows(a):
+            split = a.reshape(a.shape[:-1] + (C, R))
+            return split.transpose(-1, -2).contiguous().transpose(-1, -2)
+
+        comps = [by_rows(c) for c in self._components(pts)]
+        fkeys, outs = self._msm_kernels().strip(by_rows(skey), comps, C, R, sent)
+        return fkeys, self._point(outs)
+
+    def scan_step(self, pts, shift, width, key=None):
+        """kernels.MsmKernels.scan_step along the last axis of pts."""
+        return self._point(self._msm_kernels().scan_step(self._components(pts), shift, width, key))
+
+    def horner(self, wsums, c):
+        """kernels.MsmKernels.horner over window sums (words, W, k)."""
+        return self._point(self._msm_kernels().horner(self._components(wsums), c))
 
     def add(self, p, q):
         if self._on_cuda(p):

@@ -17,9 +17,10 @@ refuses a field or curve without kernels before anything is built; it
 allocates its outputs with ``torch.empty``, launches on the current stream,
 raises if the launch failed, and adds one to ``LAUNCHES[name]``. Instance
 names carry the field (``mul[bls12_381_fp]``) or the curve
-(``g2_add_mixed[bls12-381]``). The CPU counterparts (the plain versions)
-live beside the callers in ``fields/tfield.py``, ``poly/ntt.py`` and
-``curves/tcurve.py``.
+(``g2_add_mixed[bls12-381]``, ``g1_strip_mixed[bn254]``). The CPU
+counterparts (the plain versions) live beside the callers in
+``fields/tfield.py``, ``poly/ntt.py``, ``curves/tcurve.py`` and
+``msm/pippenger.py``.
 """
 
 from __future__ import annotations
@@ -44,8 +45,15 @@ SOURCES = (
     "curve_bls12_381.cu",
     "curve_bls12_377.cu",
     "curve_bw6_761.cu",
+    "msm_bn254_g1.cu",
+    "msm_bn254_g2.cu",
+    "msm_bls12_381_g1.cu",
+    "msm_bls12_381_g2.cu",
+    "msm_bls12_377_g1.cu",
+    "msm_bls12_377_g2.cu",
+    "msm_bw6_761.cu",
 )
-HEADERS = ("mont.cuh", "curve.cuh")
+HEADERS = ("mont.cuh", "curve.cuh", "msm.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -74,6 +82,9 @@ G2_OVER_FP = frozenset({"bw6-761"})
 FIELD_OPS = ("mul", "from_mont", "add", "sub")
 BASE_FIELD_OPS = FIELD_OPS + ("neg",)  # no path negates a scalar
 CURVE_OPS = ("g1_add", "g1_add_mixed", "g2_add", "g2_add_mixed")
+# the MSM's fused kernels (csrc/msm.cuh) -> the `kernel` argument of ts_msm_*
+MSM_KERNELS = {"strip_mixed": 0, "strip": 1, "scan_step": 2, "horner": 3}
+MSM_OPS = tuple(f"{g}_{op}" for g in ("g1", "g2") for op in MSM_KERNELS)
 
 
 def base_field_ops(curve: str) -> tuple[str, ...]:
@@ -94,7 +105,7 @@ def instances(curve: str) -> list[str]:
         [f"{op}[{fr}]" for op in FIELD_OPS]
         + [f"{op}[{fp}]" for op in BASE_FIELDS[fp]]
         + [f"butterfly[{fr}]", f"butterfly4[{fr}]"]
-        + [f"{op}[{curve}]" for op in CURVE_OPS]
+        + [f"{op}[{curve}]" for op in CURVE_OPS + MSM_OPS]
     )
 
 
@@ -121,6 +132,11 @@ _SIGNATURES = {
     **{
         f"ts_curve_{_tag(fp)}": (ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, ctypes.c_long, _P)
         for _, fp in CURVES.values()
+    },
+    **{
+        f"ts_msm_{_tag(fp)}_{g}": (ctypes.c_int, _P, _P)
+        for _, fp in CURVES.values()
+        for g in ("g1", "g2")
     },
 }
 
@@ -383,3 +399,188 @@ def curve_op(op: str, g2: bool, fp_spec, ins, b3_words, inf=None):
             _stream(ins[0]),
         )
     return outs
+
+
+# ------------------------------------------------------------------ MSM
+MAX_WORDS = 24  # csrc/mont.cuh
+
+
+class _MsmArgs(ctypes.Structure):
+    """csrc/msm.cuh's MsmArgs."""
+
+    _fields_ = [
+        ("inp", ctypes.c_uint64 * 12),
+        ("out", ctypes.c_uint64 * 6),
+        ("key", ctypes.c_uint64),
+        ("order", ctypes.c_uint64),
+        ("sign", ctypes.c_uint64),
+        ("out_key", ctypes.c_uint64),
+        ("n", ctypes.c_int64 * 8),
+        ("b3", ctypes.c_uint32 * (2 * MAX_WORDS)),
+        ("one", ctypes.c_uint32 * (2 * MAX_WORDS)),
+    ]
+
+
+def _on_card(t) -> bool:
+    return isinstance(t, torch.Tensor) and t.device.type == "cuda"
+
+
+def _check_batched(t, words: int, batch, what: str, dtype=torch.int32) -> None:
+    """A contiguous CUDA tensor of shape (words, *batch), or (*batch) where
+    words is None; nothing is copied."""
+    shape = tuple(batch) if words is None else (words,) + tuple(batch)
+    if not _on_card(t):
+        raise ValueError(f"{what}: expected a CUDA tensor")
+    if t.dtype != dtype:
+        raise TypeError(f"{what}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{what}: expected shape {shape}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: expected a contiguous tensor")
+
+
+class MsmKernels:
+    """The fused MSM kernels (csrc/msm.cuh) of one curve and group: the strip
+    pass (B5 over affine bases, B6 over projective records), the scan step and
+    the window Horner (B6). The launch block with 3b and 1 is built once; a
+    call fills in pointers and sizes and launches. Points are lists of
+    coordinate components (X, Y[, Z]; over Fp2: X.c0, X.c1, ...), each int32
+    (words, *batch) on the card; shapes are checked and nothing is copied.
+
+    b3_words, one_words: the uint32 words of 3b and of 1 in Montgomery form
+    (over Fp2: c0 then c1)."""
+
+    def __init__(self, fp_spec, g2: bool, b3_words, one_words):
+        curve = curve_of(fp_spec)
+        if curve is None:
+            raise ValueError(f"no CUDA curve kernels over {fp_spec.name}")
+        self.words = SPECS[fp_spec.name][1]
+        self.deg = 2 if g2 and curve not in G2_OVER_FP else 1
+        if len(b3_words) != self.deg * self.words or len(one_words) != self.deg * self.words:
+            raise ValueError(f"expected {self.deg * self.words} words of 3b and of 1")
+        self.group = "g2" if g2 else "g1"
+        self.curve = curve
+        self._entry = f"ts_msm_{_tag(fp_spec.name)}_{self.group}"
+        self._args = _MsmArgs()
+        self._args.b3[: len(b3_words)] = b3_words
+        self._args.one[: len(one_words)] = one_words
+
+    def _launch(self, op: str, ins, outs, sizes, like, key=None, order=None, sign=None, out_key=None):
+        a = self._args
+        for i, t in enumerate(ins):
+            a.inp[i] = t.data_ptr()
+        for i, t in enumerate(outs):
+            a.out[i] = t.data_ptr()
+        a.key = 0 if key is None else key.data_ptr()
+        a.order = 0 if order is None else order.data_ptr()
+        a.sign = 0 if sign is None else sign.data_ptr()
+        a.out_key = 0 if out_key is None else out_key.data_ptr()
+        for i, v in enumerate(sizes):
+            a.n[i] = v
+        _launch(
+            f"{self.group}_{op}[{self.curve}]",
+            getattr(build(), self._entry),
+            MSM_KERNELS[op],
+            ctypes.addressof(a),
+            _stream(like),
+        )
+
+    def _components(self, comps, coords: int, batch, what: str) -> None:
+        if len(comps) != coords * self.deg:
+            raise ValueError(f"{what}: expected {coords * self.deg} coordinate components, got {len(comps)}")
+        for i, t in enumerate(comps):
+            _check_batched(t, self.words, batch, f"{what} component {i}")
+
+    def _strip_outputs(self, W: int, C: int, R: int, device):
+        n_rec = (R + 1) * C
+        out_key = torch.empty((W, n_rec), dtype=torch.int64, device=device)
+        outs = [torch.empty((self.words, W, n_rec), dtype=torch.int32, device=device) for _ in range(3 * self.deg)]
+        return out_key, outs
+
+    def strip_mixed(self, skey, order, sign, bases, n_records: int, C: int, R: int, sent: int):
+        """The strip pass over affine bases. skey, order (int64) and sign
+        (bool), each (W, C*R): the sorted keys of every window, the record
+        each came from and whether its point is negated. bases: the
+        components of (X, Y), each (words, N0) with any strides, the same for
+        all (the kernel reads them through the strides); record j is base
+        j % N0 for j < n_records and the point (0, 0) past it. Returns the
+        flush keys (W, (R+1)*C) and the components of the projective flush
+        points (words, W, (R+1)*C)."""
+        W = skey.shape[0]
+        _check_batched(skey, None, (W, C * R), "strip keys", torch.int64)
+        out_key, outs = self._strip_outputs(W, C, R, skey.device)
+        _check_batched(order, None, (W, C * R), "strip order", torch.int64)
+        _check_batched(sign, None, (W, C * R), "strip signs", torch.bool)
+        if len(bases) != 2 * self.deg:
+            raise ValueError(f"strip bases: expected {2 * self.deg} coordinate components, got {len(bases)}")
+        n0 = bases[0].shape[-1]
+        for i, t in enumerate(bases):
+            ok = _on_card(t) and t.dtype == torch.int32
+            if not ok or tuple(t.shape) != (self.words, n0) or t.stride() != bases[0].stride():
+                raise ValueError(f"strip bases: component {i} is not a (words, N) int32 CUDA tensor in the shared layout")
+        if n0 == 0 or not 0 <= n_records <= C * R or n_records % n0:
+            raise ValueError("strip bases: the records must tile the bases")
+        sw, sp = bases[0].stride()
+        self._launch(
+            "strip_mixed", bases, outs, (W, C, R, n0, n_records, sw, sp, sent), skey, skey, order, sign, out_key
+        )
+        return out_key, outs
+
+    def strip(self, skey, comps, C: int, R: int, sent: int):
+        """The strip pass over sorted projective records: strip s of window w
+        walks records [w, s, 0..R). skey (W, C, R) int64 and comps, the
+        components of (X, Y, Z), each (words, W, C, R), in any one layout of
+        the last two axes inside a window's C*R block (the kernel is given
+        their strides: (R, 1) as sorted, (1, C) with a row's lanes side by
+        side). Returns as strip_mixed."""
+        if not _on_card(skey) or skey.dtype != torch.int64 or skey.dim() != 3:
+            raise ValueError("strip keys: expected an int64 CUDA tensor of shape (W, C, R)")
+        W = skey.shape[0]
+        layout = next(
+            (
+                (a, b)
+                for a, b in ((R, 1), (1, C))
+                if (C == 1 or skey.stride(1) == a) and (R == 1 or skey.stride(2) == b)
+            ),
+            None,
+        )
+        if tuple(skey.shape) != (W, C, R) or (W > 1 and skey.stride(0) != C * R) or layout is None:
+            raise ValueError(f"strip keys: expected (W, {C}, {R}) with strides (R, 1) or (1, C) inside a window")
+        ss, sr = layout
+        if len(comps) != 3 * self.deg:
+            raise ValueError(f"strip records: expected {3 * self.deg} coordinate components, got {len(comps)}")
+        for i, t in enumerate(comps):
+            ok = _on_card(t) and t.dtype == torch.int32 and tuple(t.shape) == (self.words, W, C, R)
+            if not ok or t.stride()[2:] != skey.stride()[1:] or t[:, :, 0, 0].stride() != (W * C * R, C * R):
+                raise ValueError(f"strip records: component {i} is not an int32 CUDA tensor of shape (words, W, C, R) in the keys' layout")
+        out_key, outs = self._strip_outputs(W, C, R, skey.device)
+        self._launch("strip", comps, outs, (W, C, R, ss, sr, 0, 0, sent), skey, skey, out_key=out_key)
+        return out_key, outs
+
+    def scan_step(self, comps, shift: int, width: int, key=None):
+        """out[i] = a[i] + a[i + shift] along the last axis where 0 <= i +
+        shift < width and (with key, int64 of the batch shape) key[i + shift]
+        == key[i]; else a[i]. comps: the components of (X, Y, Z), each
+        (words, *batch)."""
+        batch = tuple(comps[0].shape[1:])
+        self._components(comps, 3, batch, "scan step")
+        if key is not None:
+            _check_batched(key, None, batch, "scan step keys", torch.int64)
+        outs = [torch.empty_like(t) for t in comps]
+        lanes = comps[0][0].numel()
+        if lanes:
+            self._launch("scan_step", comps, outs, (lanes, batch[-1], shift, width), comps[0], key)
+        return outs
+
+    def horner(self, comps, c: int):
+        """sum_w 2^(c w) S_w by Horner from the top window down. comps: the
+        components of the window sums (X, Y, Z), each (words, W, k); returns
+        the components of the k results, each (words, k)."""
+        if comps[0].dim() != 3 or comps[0].shape[1] < 1:
+            raise ValueError("horner: expected components of shape (words, W, k)")
+        W, k = comps[0].shape[1:]
+        self._components(comps, 3, (W, k), "horner")
+        outs = [torch.empty((self.words, k), dtype=torch.int32, device=comps[0].device) for _ in comps]
+        if k:
+            self._launch("horner", comps, outs, (k, W, c), comps[0])
+        return outs

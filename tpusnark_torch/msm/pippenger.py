@@ -15,12 +15,19 @@ then
 
 PyTorch runs eagerly, so where tpusnark maps a jitted per-window function
 over the windows, the port carries the windows as a leading batch axis: every
-phase runs once over all windows, and each row of the strip scan is one
-kernel launch over ``n_windows * C`` lanes. The per-window variadic co-sort
-becomes ``torch.argsort`` plus a gather, and the 16-bit pair packing of the
-point image is dropped (32-bit words fill the lanes already). The group law
-is ``CurveOps``: on CUDA tensors its add and add_mixed are the kernels
-B6 and B5.
+phase runs once over all windows. The per-window variadic co-sort becomes
+``torch.argsort`` plus a gather of keys and signs, and the 16-bit pair
+packing of the point image is dropped (32-bit words fill the lanes already).
+
+The loops that tpusnark's jit and ``lax.scan`` hide are kernels on the card
+(``csrc/msm.cuh``, through ``KernelCurveOps``): the whole strip pass is one
+launch over ``n_windows * C`` lanes (B5 over the affine bases, which the
+kernel reads itself through the sort's order; B6 over projective records),
+each step of a fold, suffix scan or segmented scan is one launch, and the
+window Horner is one launch. ``_strip_mixed``, ``_strip``, ``_scan_step``
+and ``_horner`` send CUDA tensors there; on CPU tensors they are the plain
+versions, step-by-step loops over ``CurveOps`` whose outputs the kernels
+equal coordinate by coordinate.
 
 Coordinates are ``(words, *batch)`` words (G2: ``(c0, c1)`` tuples); a
 point is an ``(X, Y, Z)`` tuple of them; scalars are ``(words, ...)`` words
@@ -206,7 +213,6 @@ class MSM:
         Bp = 1 << (c - 1)  # live buckets per poly (signed digits)
         BK = k * Bp
         M0 = k * N0
-        dev = inf.device
         use_strips = M0 >= self.strip_threshold
         if use_strips:
             C, R = self.strip_shape(M0)
@@ -214,28 +220,9 @@ class MSM:
         else:
             M = M0
 
-        mags, signs = window_digits_signed(
-            scalars.reshape(scalars.shape[0], M0), c, self.n_windows
-        )
-        inf_flat = inf.repeat(k) if k > 1 else inf
-        poly_off = (torch.arange(M0, device=dev) // N0) * Bp
-        live = (mags > 0) & ~inf_flat
-        digits = _pad_last(torch.where(live, mags - 1 + poly_off, BK), M, BK)  # (W, M)
-        signs = _pad_last(signs, M, False)
-
-        def image(a):  # (words, N0) -> (words, M): tiled over polys, zero-padded
-            return _pad_last(a.repeat(1, k) if k > 1 else a, M)
-
-        XY = tree_map(image, (X, Y))
-
-        # every window at once: (W, M) keys, (words, W, M) coordinates
-        order = torch.argsort(digits, dim=-1, stable=True)
-        skey = torch.gather(digits, -1, order)
-        ssgn = torch.gather(signs, -1, order)
-        Xg, Yg = tree_map(lambda a: a[:, order], XY)
+        skey, order, ssgn = self._sort_records(scalars, inf, M)
         if use_strips:
-            Yg = ops.fa.select(ssgn, ops.fa.neg(Yg), Yg)
-            fkeys, fpts = self._strip_flush(skey, (Xg, Yg), C, R, BK + 1, mixed=True)
+            fkeys, fpts = self._strip_mixed(skey, order, ssgn, (X, Y), k, C, R, BK + 1)
             if c - 1 > 8 and Bp >= 1024:
                 wsums = self._weighted_from_records(fkeys, fpts, k, C)
             else:
@@ -250,32 +237,75 @@ class MSM:
                 )
                 wsums = self._weighted_buckets(buckets, k)
         else:
-            inf0 = _pad_last(inf_flat, M, True)[order]
+            Xg, Yg = self._gather_bases((X, Y), k, M, order)
+            inf0 = _pad_last(inf.repeat(k) if k > 1 else inf, M, True)[order]
             pts = ops.from_affine((Xg, Yg, inf0))
             pts = (pts[0], ops.fa.select(ssgn, ops.fa.neg(pts[1]), pts[1]), pts[2])
             buckets = self._log_scan_buckets(skey, pts, M, BK, BK + 1)
             wsums = self._weighted_buckets(buckets, k)
+        return self._horner(wsums)
 
-        # Horner from the top window down: acc = 2^c * acc + wsum[w]
-        acc = tree_map(lambda a: a[:, self.n_windows - 1], wsums)
-        for w in range(self.n_windows - 2, -1, -1):
-            for _ in range(c):
+    def _sort_records(self, scalars, inf, M: int):
+        """The records of every window, sorted by bucket key. scalars (words,
+        k, N0) normal form, inf (N0,): record j = poly * N0 + i is point i
+        under poly's scalar, keyed poly * B' + |digit| - 1, or DEAD (k * B')
+        for a zero digit, an infinity input and the padding up to M records.
+        Returns (skey, order, ssgn), each (W, M): the sorted keys, the record
+        each came from, and whether its digit is negative."""
+        c = self.c
+        k, N0 = scalars.shape[1:]
+        M0, Bp = k * N0, 1 << (c - 1)
+        BK = k * Bp
+        mags, signs = window_digits_signed(scalars.reshape(scalars.shape[0], M0), c, self.n_windows)
+        inf_flat = inf.repeat(k) if k > 1 else inf
+        poly_off = (torch.arange(M0, device=inf.device) // N0) * Bp
+        live = (mags > 0) & ~inf_flat
+        digits = _pad_last(torch.where(live, mags - 1 + poly_off, BK), M, BK)  # (W, M)
+        signs = _pad_last(signs, M, False)
+        order = torch.argsort(digits, dim=-1, stable=True)
+        return torch.gather(digits, -1, order), order, torch.gather(signs, -1, order)
+
+    @staticmethod
+    def _gather_bases(XY, k: int, M: int, order):
+        """The bases (words, N0), tiled over the k polys and zero-padded to M
+        records, gathered by each window's order: (words, W, M)."""
+        return tree_map(lambda a: _pad_last(a.repeat(1, k) if k > 1 else a, M)[:, order], XY)
+
+    def _horner(self, wsums):
+        """sum_w 2^(c w) wsums[:, w] from the top window down: acc = 2^c *
+        acc + wsums[:, w]. wsums: (words, W, k); returns a batch-k point."""
+        ops = self.ops
+        if _on_card(wsums):
+            return ops.horner(tree_map(lambda a: a.contiguous(), wsums), self.c)
+        acc = tree_map(lambda a: a[:, -1], wsums)
+        for w in range(_leaf(wsums).shape[1] - 2, -1, -1):
+            for _ in range(self.c):
                 acc = ops.double(acc)
             acc = ops.add(acc, tree_map(lambda a: a[:, w], wsums))
         return acc
 
     # ------------------------------------------------------------ phases
+    def _scan_step(self, vals, shift: int, width: int, key=None):
+        """One step of a log-step reduction along the last axis: position i
+        becomes vals[i] + vals[i + shift] where 0 <= i + shift < width and
+        (with key, of the batch shape) key[i + shift] == key[i], and stays
+        vals[i] elsewhere. One launch on the card."""
+        ops = self.ops
+        if _on_card(vals):
+            return ops.scan_step(vals, shift, width, key)
+        j = torch.arange(_last(vals)) + shift
+        keep = (j >= 0) & (j < width)
+        if key is not None:
+            keep = keep & (torch.roll(key, -shift, dims=-1) == key)
+        shifted = tree_map(lambda a: torch.roll(a, -shift, dims=-1), vals)
+        return ops.select(keep, ops.add(vals, shifted), vals)
+
     def _fold_sum(self, vals, m: int):
         """Sum m points along the last axis by halving; result in [..., :1]."""
-        if m == 1:
-            return vals
-        ops = self.ops
-        iota = torch.arange(m, device=_dev(vals))
         width = m
         for _ in range((m - 1).bit_length()):
             half = (width + 1) // 2
-            shifted = tree_map(lambda a: torch.roll(a, -half, dims=-1), vals)
-            vals = ops.select((iota + half) < width, ops.add(vals, shifted), vals)
+            vals = self._scan_step(vals, half, width)
             width = half
         return tree_map(lambda a: a[..., :1], vals)
 
@@ -284,12 +314,8 @@ class MSM:
         a scatter of the segment-end sums into nbuckets slots (keys >=
         nbuckets land in dropped overflow slots). skey: (W, m)."""
         ops = self.ops
-        iota = torch.arange(m, device=skey.device)
         for r in range(max((m - 1).bit_length(), 0)):
-            d = 1 << r
-            shifted = tree_map(lambda a: torch.roll(a, d, dims=-1), pts)
-            same = (iota >= d) & (torch.roll(skey, d, dims=-1) == skey)
-            pts = ops.select(same, ops.add(pts, shifted), pts)
+            pts = self._scan_step(pts, -(1 << r), m, skey)
         last = torch.ones_like(skey[..., :1], dtype=torch.bool)
         is_end = torch.cat([skey[..., :-1] != skey[..., 1:], last], dim=-1)
         sidx = torch.where(is_end, skey, sent).clamp(max=nbuckets + 1)
@@ -299,15 +325,37 @@ class MSM:
         )
         base = tree_map(lambda a: a.contiguous(), ops.identity_like(tmpl))
         return tree_map(
-            lambda ini, a: ini.scatter(-1, sidx.expand(a.shape), a)[..., :nbuckets], base, pts
+            lambda ini, a: ini.scatter(-1, sidx.expand(a.shape), a)[..., :nbuckets].contiguous(), base, pts
         )
 
+    def _strip_mixed(self, skey, order, ssgn, XY, k: int, Cs: int, Rs: int, sent: int):
+        """The strip pass over the sorted records of every window, from the
+        affine bases XY (words, N0): record j < k * N0 is base j % N0, later
+        records are padding (the point (0, 0), under the DEAD key); ssgn
+        marks the records whose point is negated. skey, order, ssgn: (W,
+        Cs*Rs). Returns as _strip_flush. One launch on the card (B5), which
+        gathers the bases itself."""
+        ops = self.ops
+        if _on_card(XY):
+            return ops.strip_mixed(skey, order, ssgn, XY, k * _last(XY), Cs, Rs, sent)
+        Xg, Yg = self._gather_bases(XY, k, Cs * Rs, order)
+        Yg = ops.fa.select(ssgn, ops.fa.neg(Yg), Yg)
+        return self._strip_flush(skey, (Xg, Yg), Cs, Rs, sent, mixed=True)
+
+    def _strip(self, skey, pts, Cs: int, Rs: int, sent: int):
+        """The strip pass over sorted projective records (words, W, Cs*Rs);
+        returns as _strip_flush. One launch on the card (B6)."""
+        if _on_card(pts):
+            return self.ops.strip(skey, pts, Cs, Rs, sent)
+        return self._strip_flush(skey, pts, Cs, Rs, sent, mixed=False)
+
     def _strip_flush(self, skey, pts, Cs: int, Rs: int, sent: int, mixed: bool):
-        """Strip accumulation: Cs strips of Rs sequential rows per window, one
-        (W*Cs)-wide add per row, a flush record at each key boundary.
-        Returns (W, (Rs+1)*Cs) flush keys and projective flush points; rows
-        without a flush are keyed `sent`. mixed: pts is the gathered affine
-        (X, Y) pair (complete mixed adds, B5); else projective (B6)."""
+        """Strip accumulation, step by step (the plain version of the strip
+        kernels): Cs strips of Rs sequential rows per window, one (W*Cs)-wide
+        add per row, a flush record at each key boundary. Returns (W,
+        (Rs+1)*Cs) flush keys and projective flush points; rows without a
+        flush are keyed `sent`. mixed: pts is the gathered affine (X, Y) pair
+        (complete mixed adds); else projective."""
         ops = self.ops
         W = skey.shape[0]
         keys2 = skey.reshape(W, Cs, Rs)
@@ -343,7 +391,7 @@ class MSM:
         M2 = C2 * R2
         skey = _pad_last(skey, M2, sent)
         pts = tree_map(lambda a: _pad_last(a, M2), pts)
-        fkeys, fpts = self._strip_flush(skey, pts, C2, R2, sent, mixed=False)
+        fkeys, fpts = self._strip(skey, pts, C2, R2, sent)
         K2 = min((R2 + 1) * C2, nbuckets + C2)
         ridx = torch.argsort(fkeys, dim=-1, stable=True)[:, :K2]
         return self._log_scan_buckets(
@@ -354,11 +402,9 @@ class MSM:
         """sum_b b * vals[b] over the last axis (small m): suffix scan, then
         the sum of suffixes 1..m-1. Result in [..., :1]."""
         ops = self.ops
-        iota = torch.arange(m, device=_dev(vals))
         for r in range((m - 1).bit_length()):
-            d = 1 << r
-            shifted = tree_map(lambda a: torch.roll(a, -d, dims=-1), vals)
-            vals = ops.select(iota < m - d, ops.add(vals, shifted), vals)
+            vals = self._scan_step(vals, 1 << r, m)
+        iota = torch.arange(m, device=_dev(vals))
         vals = ops.select(iota >= 1, vals, ops.identity_like(vals[0]))
         return self._fold_sum(vals, m)
 
@@ -370,9 +416,9 @@ class MSM:
         Bl = 1 << ((c - 1) // 2)
         Bh = Bp // Bl
         S = tree_map(lambda a: a.reshape(a.shape[:-1] + (k, Bh, Bl)), buckets)
-        rows = tree_map(lambda a: a[..., 0], self._fold_sum(S, Bl))  # (.., k, Bh)
-        cols = tree_map(lambda a: a.transpose(-1, -2), S)  # (.., k, Bl, Bh)
-        cols = tree_map(lambda a: a[..., 0], self._fold_sum(cols, Bh))  # (.., k, Bl)
+        rows = tree_map(lambda a: a[..., 0].contiguous(), self._fold_sum(S, Bl))  # (.., k, Bh)
+        cols = tree_map(lambda a: a.transpose(-1, -2).contiguous(), S)  # (.., k, Bl, Bh)
+        cols = tree_map(lambda a: a[..., 0].contiguous(), self._fold_sum(cols, Bh))  # (.., k, Bl)
         w_hi = self._small_weighted(rows, Bh)
         w_lo = self._small_weighted(cols, Bl)
         total = self._fold_sum(rows, Bh)
@@ -418,8 +464,23 @@ class MSM:
         return tree_map(lambda a: a[..., 0], out)
 
 
-def _dev(pt) -> torch.device:
+def _leaf(pt) -> torch.Tensor:
     while isinstance(pt, tuple):
         pt = pt[0]
-    return pt.device
+    return pt
+
+
+def _dev(pt) -> torch.device:
+    return _leaf(pt).device
+
+
+def _on_card(pt) -> bool:
+    """Whether a point's tensors lie on a card: then the MSM's loops are the
+    fused kernels of KernelCurveOps, else the plain versions here."""
+    return _dev(pt).type == "cuda"
+
+
+def _last(pt) -> int:
+    """Length of the last axis of a point's (or coordinate's) tensors."""
+    return _leaf(pt).shape[-1]
 

@@ -7,19 +7,22 @@ Phases, each printing its lines:
   1. require a CUDA device; print the card's name and power limit;
   2. build the CUDA kernels from ``tpusnark_torch/csrc`` (one nvcc per source,
      in parallel) and print the time and each kernel's registers and spills;
-then per curve (BW6-761, BLS12-377, BLS12-381, BN254):
+then per curve (BLS24-315, BLS24-317, BW6-761, BW6-633, BLS12-377,
+BLS12-381, BN254):
   3. check every kernel instance of the curve against its plain PyTorch
      version (run on a CPU copy of the same seeded inputs) at the prove's
      widths (the pointwise curve kernels over a strip row of its MSMs,
-     windows x strips lanes): exact equality mod p, with both times and the
-     bound. The MSM's fused kernels (strip pass, scan step, window Horner) run
+     windows x strips lanes; their plain versions on the first CHECK_LANES
+     of those lanes, the rest of the work being the same formulas on other
+     lanes): exact equality mod p, with both times and the bound. The MSM's fused kernels (strip pass, scan step, window Horner) run
      at the prove's shapes: the strip passes over windows x strips lanes by
      the prove's rows, on keys with long runs, DEAD keys, sign flips and
      repeated points, against the step-by-step loop over the pointwise
      kernels on the card (its CPU run would take minutes: 64 rows of 1-10 s)
      and, at 8 strips a window, against the plain loop on the CPU; a
-     segmented and a fold scan step and the Horner over the curve's windows
-     against the plain versions on the CPU. Equality there is word for word;
+     segmented step (its plain version over the first two windows) and a
+     fold scan step and the Horner over the curve's windows against the
+     plain versions on the CPU. Equality there is word for word;
   4. MSMs against a host sum from the curve's host module: with c = 16 on
      the strip path, G1 at N = 1024 and G2 at N = 256, and on the log-scan
      path (N = 160, the window size of that N) both groups;
@@ -27,9 +30,9 @@ then per curve (BW6-761, BLS12-377, BLS12-381, BN254):
      r: compile, setup (seeded), prove, with phase times. The port's host
      verifier must accept the proof and reject a wrong public input (for
      BLS12-381 also the bellman-checked ``bls381.verify``). The verifiers
-     run in worker processes beside the later phases, because a BW6-761
-     pairing check is minutes of Python integers; all verdicts are collected
-     before the result;
+     run in worker processes beside the later phases, because a BLS24 or
+     BW6-761 pairing check is minutes of Python integers; all verdicts are
+     collected before the result;
   6. every kernel instance of the prove path was launched by that prove
      (counts zeroed just before ``prove`` and read just after), and every
      setup-only instance by that curve's setup.
@@ -52,9 +55,15 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 LOG2_CONSTRAINTS = 17
 SEED = 20261016
-# BW6-761 first: its verdicts take longest and are computed beside the rest
-CURVES = ("bw6-761", "bls12-377", "bls12-381", "bn254")
-VERIFY_WORKERS = 4
+# the curves whose verdicts take longest first: they are computed beside the
+# rest
+CURVES = ("bls24-315", "bls24-317", "bw6-761", "bw6-633", "bls12-377", "bls12-381", "bn254")
+# the verifier processes: every core but two, which the main process's plain
+# checks and the card's host work keep
+VERIFY_WORKERS = max(1, (os.cpu_count() or 4) - 2)
+# the pointwise curve kernels are timed over a strip row of the MSMs and held
+# against their plain versions on the first CHECK_LANES lanes of it
+CHECK_LANES = 2048
 
 # The card's peaks for the kernels' bounds. Device memory: 3.35 TB/s (NVIDIA's
 # H100 SXM data sheet). 32-bit integer multiply-adds: the data sheet's 67
@@ -95,7 +104,7 @@ for _g in ("g1", "g2"):
 # multiplication; the prove's mixed adds are all inside the strip kernel
 SETUP_ONLY_CURVE_OPS = ("g1_add_mixed", "g2_add_mixed")
 # Checked in phase 3 but on neither the setup's nor the prove's path at 2^17,
-# where G2 lies over Fp (no Fp2 inversion): neg[fp] then serves only the
+# where G2 lies over Fp (no Fp2 or Fp4 inversion): neg[fp] then serves only the
 # MSM's log-scan path (96 < records < 2^15), which phase 4 drives.
 OFF_PATH_OPS = ("neg",)
 # per 2^17 prove: one strip pass over the bases and one Horner per MSM, and
@@ -109,9 +118,9 @@ MAX_B6_LAUNCHES = 450
 # bases with neg[fp] until the strip kernel took that over). Checked in
 # phase 3, launched by setup.
 SETUP_ONLY_OPS = ("mul", "add", "sub", "neg", "from_mont")
-# (the add, sub and neg come from the Fp2 inversion of to_affine: BW6-761,
-# whose G2 lies over Fp, has no add and no sub instance, and its neg is
-# OFF_PATH_OPS below).
+# (the add, sub and neg come from the Fp2 inversion of to_affine, also inside
+# the Fp4 one of the BLS24 curves: the BW6 curves, whose G2 lies over Fp,
+# have no add and no sub instance, and their neg is OFF_PATH_OPS above).
 
 
 _POOL = None  # the verifier processes, once started
@@ -269,6 +278,11 @@ def _compare(torch, field, got, want):
     return n_bad, err
 
 
+# Fp products of one product over Fp, Fp2 (Karatsuba) and Fp4 (Karatsuba
+# over Fp2)
+PRODUCTS_PER_MUL = {1: 1, 2: 3, 4: 9}
+
+
 def mont_imads(words: int) -> int:
     """32-bit integer multiply-add instructions of one Montgomery product of
     `words` words (CIOS, csrc/mont.cuh): 2 words^2 word products (a*b and
@@ -301,7 +315,7 @@ def phase_kernels(torch, curve, np_rng, n_wires):
     widths that a prove over `n_wires` wires gives it."""
     from tpusnark_torch import kernels
     from tpusnark_torch.curves.config import get_curve
-    from tpusnark_torch.curves.tcurve import CurveOps, Fp2Arith, curve_ops
+    from tpusnark_torch.curves.tcurve import CurveOps, curve_ops
     from tpusnark_torch.fields.tfield import get_field
     from tpusnark_torch.msm.pippenger import get_msm_for
     from tpusnark_torch.poly.ntt import get_ntt
@@ -309,9 +323,10 @@ def phase_kernels(torch, curve, np_rng, n_wires):
     dev = torch.device("cuda")
     results = {}
 
-    def record(name, field, run_kernel, run_plain, lanes, bound):
+    def record(name, field, run_kernel, run_plain, lanes, bound, plain_lanes=None):
         """run_kernel() -> CUDA outputs; run_plain() -> the CPU outputs of
-        the plain version on the same inputs."""
+        the plain version on the same inputs, or on their first plain_lanes
+        lanes (then only those lanes of the kernel's outputs are compared)."""
         got = run_kernel()
         torch.cuda.synchronize()
         want, plain_ms = _time_host(run_plain)
@@ -319,12 +334,13 @@ def phase_kernels(torch, curve, np_rng, n_wires):
         want = want if isinstance(want, (tuple, list)) else (want,)
         n_bad, err = 0, 0.0
         for g, w in zip(got, want):
-            b, e = _compare(torch, field, g, w)
+            b, e = _compare(torch, field, g[:, : w.shape[1]], w)
             n_bad += b
             err = max(err, e)
         ms = _time_cuda(torch, run_kernel)
         results[name] = dict(
             lanes=lanes,
+            plain_lanes=plain_lanes or lanes,
             mismatches=n_bad,
             max_abs_err=err,
             ms=ms,
@@ -358,7 +374,7 @@ def phase_kernels(torch, curve, np_rng, n_wires):
 
     # NTT butterflies over fr, at the flat widths of a 2^17 transform
     p, words, tag = fr.modulus, fr.n, fr.spec.name
-    ntt_c, ntt_g = get_ntt(cfg.fr_spec, 2), get_ntt(cfg.fr_spec, 2, dev)
+    ntt_c, ntt_g = get_ntt(cfg.fr_spec, 2, "cpu"), get_ntt(cfg.fr_spec, 2, dev)
     n2, n4 = n // 2, n // 4
     xs_c = [torch.from_numpy(_lazy_words(np_rng, n2, p, words)) for _ in range(7)]
     xs = [x.to(dev) for x in xs_c]
@@ -384,18 +400,19 @@ def phase_kernels(torch, curve, np_rng, n_wires):
     # curve kernels on arbitrary coordinates (the formulas are polynomial
     # identities), with identity lanes, P + P lanes and infinity lanes, over
     # one strip row of the prove's MSMs: windows x strips lanes (16 x 2048 for
-    # scalars up to 255 bits, 24 x 2048 for BW6-761's 377)
+    # scalars up to 255 bits, 20 x 2048 for BW6-633's 315, 24 x 2048 for
+    # BW6-761's 377); the plain versions run on the first CHECK_LANES
     p = fp.modulus
     for group, ops in zip(("g1", "g2"), curve_ops(curve)):
         msm = get_msm_for(group, n_wires, curve)
         nc = msm.n_windows * msm.strip_shape(n_wires)[0]
         plain = CurveOps(ops.fa)
-        fp2 = isinstance(ops.fa, Fp2Arith)
-        d = 2 if fp2 else 1
+        d = ops.degree
         # Fp products per point add: 12 (add) or 11 (add_mixed) products and
-        # two by 3b (none where 3b = 9 is an add chain); an Fp2 product is 3
-        b3_products = 0 if (not fp2 and ops.fa.b3 == 9) else 2
-        per = 3 if fp2 else 1
+        # two by 3b (none where 3b = 9 is an add chain); an Fp2 product is 3,
+        # an Fp4 product 9
+        b3_products = 0 if (d == 1 and ops.fa.b3 == 9) else 2
+        per = PRODUCTS_PER_MUL[d]
 
         def coords(k):
             return [torch.from_numpy(_lazy_words(np_rng, nc, p, fp.n)) for _ in range(k * d)]
@@ -412,9 +429,7 @@ def phase_kernels(torch, curve, np_rng, n_wires):
         inf_c = torch.from_numpy(np_rng.random(nc) < 0.1)
 
         def pt(cs):
-            if not fp2:
-                return tuple(cs)
-            return tuple((cs[2 * i], cs[2 * i + 1]) for i in range(3))
+            return tuple(ops.fa.from_components(cs[i * d : (i + 1) * d]) for i in range(3))
 
         def flat(out):
             return [c for x in out for c in ops.fa.components(x)]
@@ -422,6 +437,8 @@ def phase_kernels(torch, curve, np_rng, n_wires):
         Pg = [x.to(dev) for x in P1]
         Qg = [x.to(dev) for x in Q]
         inf_g = inf_c.to(dev)
+        m = min(nc, CHECK_LANES)
+        P1, Q, inf_c = [x[:, :m] for x in P1], [x[:, :m] for x in Q], inf_c[:m]
         record(
             f"{group}_add[{curve}]",
             fp,
@@ -429,6 +446,7 @@ def phase_kernels(torch, curve, np_rng, n_wires):
             lambda: flat(plain.add(pt(P1), pt(Q))),
             nc,
             kernel_bound(fp.n, nc, 6 * d, 3 * d, per * (12 + b3_products)),
+            m,
         )
         aff_g = pt(Qg)[:2] + (inf_g,)
         aff_c = pt(Q)[:2] + (inf_c,)
@@ -439,8 +457,9 @@ def phase_kernels(torch, curve, np_rng, n_wires):
             lambda: flat(plain.add_mixed(pt(P1), aff_c)),
             nc,
             kernel_bound(
-                fp.n, nc, 5 * d, 3 * d, per * (11 + b3_products), extra_bytes=nc, active=nc - int(inf_c.sum())
+                fp.n, nc, 5 * d, 3 * d, per * (11 + b3_products), extra_bytes=nc, active=nc - int(inf_g.sum())
             ),
+            m,
         )
 
     for name, r in results.items():
@@ -450,7 +469,7 @@ def phase_kernels(torch, curve, np_rng, n_wires):
         say(
             f"[3 check] {name:26s} lanes={r['lanes']:6d} mismatches={r['mismatches']} "
             f"kernel={r['ms']:.4f} ms bound={r['bound_ms']:.4f} ms ({r['bound_by']}) "
-            f"plain({r['plain_device']})={r['plain_ms']:.1f} ms"
+            f"plain({r['plain_device']}, {r['plain_lanes']} lanes)={r['plain_ms']:.1f} ms"
         )
     missing = sorted(set(kernels.instances(curve)) - set(results))
     if missing:
@@ -470,21 +489,21 @@ def _words_differ(torch, got, want):
     return int(bad.sum())
 
 
-def strip_inputs(torch, np_rng, fp, fr, n0, fp2):
+def strip_inputs(torch, np_rng, fp, fr, n0, fa):
     """Bases, scalars and an infinity mask (CPU tensors) for a strip pass over
-    n0 records a window: arbitrary coordinates (the formulas are polynomial
-    identities), a repeated point under a repeated scalar (a doubling inside
-    a key run), 300 records under one scalar (a run longer than a strip),
-    one-word scalars (DEAD keys in every upper window), zero scalars and
-    infinity inputs."""
+    n0 records a window, coordinates as the arithmetic `fa` holds them:
+    arbitrary coordinates (the formulas are polynomial identities), a
+    repeated point under a repeated scalar (a doubling inside a key run), 300
+    records under one scalar (a run longer than a strip), one-word scalars
+    (DEAD keys in every upper window), zero scalars and infinity inputs."""
+    from tpusnark_torch.msm.pippenger import tree_map
 
     def coord():
-        if fp2:
-            return tuple(torch.from_numpy(_lazy_words(np_rng, n0, fp.modulus, fp.n)) for _ in range(2))
-        return torch.from_numpy(_lazy_words(np_rng, n0, fp.modulus, fp.n))
+        words = (torch.from_numpy(_lazy_words(np_rng, n0, fp.modulus, fp.n)) for _ in range(fa.degree))
+        return fa.from_components(list(words))
 
     def each(fn, x):
-        return tuple(fn(c) for c in x) if isinstance(x, tuple) else fn(x)
+        return tree_map(fn, x)
 
     def repeat_point(a):
         a[:, 8:12] = a[:, 7:8]
@@ -515,16 +534,20 @@ def phase_msm_kernels(torch, curve, np_rng, n_wires, dev):
         return tree_map(lambda a: a.to(device), x)
 
     def flat(pt):
-        return [c for x in pt for c in (x if isinstance(x, tuple) else (x,))]
+        """The leaves of a point (coordinates over any tower), in order."""
+        return [c for x in pt for c in (flat(x) if isinstance(x, tuple) else (x,))]
 
-    def record(name, run_kernel, want, plain_ms, plain_device, lanes, bound, reps, also=""):
+    def record(name, run_kernel, want, plain_ms, plain_device, lanes, bound, reps, plain_lanes=None, cut=None):
+        """cut(outputs) -> the part of the kernel's outputs that the plain
+        version computed (its first windows), where it ran on a part."""
         got = run_kernel()
         torch.cuda.synchronize()
-        n_bad = _words_differ(torch, got, want)
+        n_bad = _words_differ(torch, got if cut is None else cut(got), want)
         if n_bad:
-            fail(f"kernel {name} disagrees with its plain version on {n_bad} lanes{also}")
+            fail(f"kernel {name} disagrees with its plain version on {n_bad} lanes")
         results[name] = dict(
             lanes=lanes,
+            plain_lanes=plain_lanes or lanes,
             mismatches=0,
             max_abs_err=0.0,
             ms=_time_cuda(torch, run_kernel, reps),
@@ -539,13 +562,13 @@ def phase_msm_kernels(torch, curve, np_rng, n_wires, dev):
         W, c = msm.n_windows, msm.c
         C, R = msm.strip_shape(n_wires)
         sent = msm.nbuckets + 1
-        d = 2 if ops.fp2 else 1
-        imads = (3 if ops.fp2 else 1) * mont_imads(fp.n)
-        b3_products = 0 if (not ops.fp2 and ops.fa.b3 == 9) else 2
+        d = ops.degree
+        imads = PRODUCTS_PER_MUL[d] * mont_imads(fp.n)
+        b3_products = 0 if (d == 1 and ops.fa.b3 == 9) else 2
         row = 4 * fp.n * d  # bytes of one coordinate
 
         def strip_case(n0, C, R):
-            X, Y, scalars, inf = strip_inputs(torch, np_rng, fp, fr, n0, ops.fp2)
+            X, Y, scalars, inf = strip_inputs(torch, np_rng, fp, fr, n0, ops.fa)
             skey, order, ssgn = msm._sort_records(scalars[:, None, :], inf, C * R)
             return (X, Y), skey, order, ssgn
 
@@ -658,7 +681,10 @@ def phase_msm_kernels(torch, curve, np_rng, n_wires, dev):
         del fkeys2, fpts2
         F = min(256, K2)  # the fold of weighted_from_records' 256 lo slots
         fold = tree_map(lambda a: a[..., :F].reshape(a.shape[0], W, 1, F).contiguous(), pts3)
-        want_seg, seg_ms = _time_host(lambda: flat(msm._scan_step(to(pts3, "cpu"), -8, K2, skey3.cpu())))
+        # the segmented step's plain version over the first two windows (the
+        # windows are independent rows of the step)
+        pts3_c = tree_map(lambda a: a[:, :2].cpu(), pts3)
+        want_seg, seg_ms = _time_host(lambda: flat(msm._scan_step(pts3_c, -8, K2, skey3[:2].cpu())))
         want_fold, fold_ms = _time_host(lambda: flat(msm._scan_step(to(fold, "cpu"), F // 2, F)))
         seg_adds = int((skey3[:, 8:] == skey3[:, :-8]).sum())
         seg_lanes, fold_lanes = W * K2, W * F
@@ -678,6 +704,8 @@ def phase_msm_kernels(torch, curve, np_rng, n_wires, dev):
             seg_lanes,
             bound_of(seg_lanes * (8 + 6 * row), seg_adds * (12 + b3_products) * imads),
             20,
+            plain_lanes=2 * K2,
+            cut=lambda outs: [a[:, :2] for a in outs],
         )
 
         # --- the window Horner: B6, one result over the curve's windows
@@ -707,6 +735,8 @@ def phase_msm(torch, dev, curve, sizes=(1024, 256), small=160):
         g1_to_device,
         g2_from_device_proj,
         g2_to_device,
+        g4_from_device_proj,
+        g4_to_device,
     )
     from tpusnark_torch.curves.tcurve import curve_ops
     from tpusnark_torch.fields.tfield import get_field
@@ -721,8 +751,14 @@ def phase_msm(torch, dev, curve, sizes=(1024, 256), small=160):
     def dec2(out, fp):
         return g2_from_device_proj(out, fp, host.Fp2, cfg.fp2_q)
 
-    # a G2 over Fp (BW6-761) has plain int points: the G1 encoders
-    g2_codec = (g1_to_device, g1_from_device_proj) if cfg.g2_over_fp else (g2_to_device, dec2)
+    def dec4(out, fp):
+        return g4_from_device_proj(out, fp, host.Fp4, host.Fp2)
+
+    # a G2 over Fp (the BW6 curves) has plain int points: the G1 encoders
+    if cfg.g2_over_fp:
+        g2_codec = (g1_to_device, g1_from_device_proj)
+    else:
+        g2_codec = (g4_to_device, dec4) if cfg.g2_fp4 else (g2_to_device, dec2)
     for label, G, ops, size, enc, dec in (
         ("G1", host.G1, g1, sizes[0], g1_to_device, g1_from_device_proj),
         ("G2", host.G2, g2, sizes[1], *g2_codec),
@@ -775,11 +811,48 @@ def verifier_names(curve):
     return ("verify", "bls381.verify") if curve == "bls12-381" else ("verify",)
 
 
+class Fp4Ints(tuple):
+    """The four Fp components of a host Fp4 element, as a worker process
+    receives them: the tower's classes are made at run time
+    (curves/tower.py make_ext) and do not pickle."""
+
+
+def portable(v):
+    """Host points, keys and proofs with every Fp4 element as Fp4Ints."""
+    import dataclasses
+
+    if dataclasses.is_dataclass(v):
+        return dataclasses.replace(v, **{f.name: portable(getattr(v, f.name)) for f in dataclasses.fields(v) if f.init})
+    if isinstance(v, (list, tuple)):
+        return type(v)(portable(x) for x in v)
+    if hasattr(v, "c") and hasattr(v, "DEG"):  # a tower element
+        return Fp4Ints(f.v for f2 in v.c for f in f2.c)
+    return v
+
+
+def restored(v, host):
+    """portable(v) back, with host's Fp4 and Fp2 classes."""
+    import dataclasses
+
+    if dataclasses.is_dataclass(v):
+        return dataclasses.replace(v, **{f.name: restored(getattr(v, f.name), host) for f in dataclasses.fields(v) if f.init})
+    if isinstance(v, Fp4Ints):
+        return host.Fp4((host.Fp2(v[:2]), host.Fp2(v[2:])))
+    if isinstance(v, (list, tuple)):
+        return type(v)(restored(x, host) for x in v)
+    return v
+
+
 def verdict(curve, name, proof, vk, pubs):
     """(accepted?, seconds) of the port's host verifier `name` for `curve`.
-    Top level, so that a worker process can run it."""
+    Top level, so that a worker process can run it; proof and vk as
+    portable() made them."""
     if HERE not in sys.path:
         sys.path.insert(0, HERE)
+    from tpusnark_torch.curves.config import get_curve
+
+    host = get_curve(curve).host
+    proof, vk = restored(proof, host), restored(vk, host)
     t0 = time.perf_counter()
     if name == "verify":
         from tpusnark_torch.backend.groth16 import verify
@@ -812,6 +885,7 @@ def start_workers():
 def submit_verdicts(pool, curve, proof, vk, good, wrong):
     """Ask the workers for the verdicts on the proof with the right and a
     wrong public input: [(verifier, expected verdict, pending result)]."""
+    proof, vk = portable(proof), portable(vk)
     return [
         (name, expect, pool.apply_async(verdict, (curve, name, proof, vk, pubs)))
         for name in verifier_names(curve)
@@ -916,13 +990,20 @@ def check_launches(curve, setup_only, off_path, setup_launches, launches):
 
 # ---------------------------------------------------------------- main
 def main() -> None:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke run of tpusnark_torch on one GPU.")
+    ap.add_argument("--curves", default=",".join(CURVES), help="comma-separated subset of the seven curves")
+    curves = ap.parse_args().curves.split(",")
+    if not set(curves) <= set(CURVES):
+        fail(f"unknown curves {sorted(set(curves) - set(CURVES))}; the curves are {', '.join(CURVES)}")
     try:
-        run()
+        run(curves)
     finally:
         stop_workers()  # also when a phase raised
 
 
-def run() -> None:
+def run(curves) -> None:
     t_start = time.perf_counter()
     torch, card = phase_card()
     import numpy as np
@@ -936,7 +1017,7 @@ def run() -> None:
     dev = torch.device("cuda")
     np_rng = np.random.default_rng(SEED)
     checks, runs, pending = {}, {}, {}
-    for curve in CURVES:
+    for curve in curves:
         t0 = time.perf_counter()
         cs, assign = mul_chain(LOG2_CONSTRAINTS, get_curve(curve).host.R)
         compile_s = time.perf_counter() - t0
@@ -945,10 +1026,10 @@ def run() -> None:
         setup_launches, launches, pending[curve] = phase_groth16(torch, dev, curve, pool, cs, assign, compile_s)
         runs[curve] = (setup_launches, launches)
         check_launches(curve, setup_only, off_path, setup_launches, launches)
-    missing = sorted(set(kernels.LAUNCHES) - set(checks))
+    missing = sorted({k for c in curves for k in kernels.instances(c)} - set(checks))
     if missing:
         fail(f"kernels not checked: {missing}")
-    for curve in CURVES:
+    for curve in curves:
         collect_verdicts(curve, LOG2_CONSTRAINTS, pending[curve])
     stop_workers()
     for mod in ("jax", "tpusnark"):
@@ -975,6 +1056,7 @@ def run() -> None:
                     ms=c["ms"],
                     plain_ms=c["plain_ms"],
                     plain_device=c["plain_device"],
+                    plain_lanes=c["plain_lanes"],
                     bound_ms=c["bound_ms"],
                     bound_by=c["bound_by"],
                     library_ms=None,  # no PyTorch call computes a multi-word modular product

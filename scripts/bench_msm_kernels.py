@@ -62,7 +62,7 @@ def main() -> None:
         for group, ops in zip(("g1", "g2"), curve_ops(curve)):
             msm = get_msm_for(group, n0, curve)
             W, (C, R) = msm.n_windows, msm.strip_shape(n0)
-            X, Y, scalars, inf = chip_smoke.strip_inputs(torch, np_rng, fp, fr, n0, ops.fp2)
+            X, Y, scalars, inf = chip_smoke.strip_inputs(torch, np_rng, fp, fr, n0, ops.fa)
             skey, order, ssgn = (t.to(dev) for t in msm._sort_records(scalars[:, None, :], inf, C * R))
             limb = ops._components(tree_map(lambda a: a.to(dev), (X, Y)))
             image = torch.stack([c.t() for c in limb], dim=1).contiguous()  # (N0, components, words)

@@ -77,7 +77,7 @@ def profile_one(torch, prove_once):
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--curves", default="bw6-761,bls12-377,bls12-381,bn254")
+    ap.add_argument("--curves", default="bls24-315,bls24-317,bw6-761,bw6-633,bls12-377,bls12-381,bn254")
     ap.add_argument("--proves", type=int, default=4)
     ap.add_argument("--log2n", type=int, default=chip_smoke.LOG2_CONSTRAINTS)
     args = ap.parse_args()

@@ -1,12 +1,13 @@
 """The port's field arithmetic (tpusnark_torch.fields.tfield, plain versions
 on the CPU) against tpusnark's Field (JAX on the CPU) and Python ints, on
-the same seeded inputs, for the eight fields with kernels: BN254 fr and fp
-and BLS12-377 fr (8 words), BLS12-381 fr (9 words; its R = 2^288 is not
-tpusnark's 2^272), BLS12-381 fp, BLS12-377 fp and BW6-761 fr (12 words) and
-BW6-761 fp (24 words, where a product has 48 word rows of carries). Exact:
-values are compared as ints mod p. Also the constants of csrc/mont.cuh
-against FieldSpec, the R of 17-limb specs across convert.py, and the
-wrappers' refusals."""
+the same seeded inputs, for the fields with kernels, every width and R: BN254
+fr and fp and BLS12-377 fr (8 words), BLS12-381 fr and BLS24-317 fr (9 words;
+their R = 2^288 is not tpusnark's 2^272), BLS24-315 fp and BW6-633 fr (10
+words), BLS12-381 fp, BLS12-377 fp and BW6-761 fr (12 words), BW6-633 fp (20
+words) and BW6-761 fp (24 words, where a product has 48 word rows of
+carries); the constants of all fourteen. Exact: values are compared as ints mod p. Also the
+constants of csrc/mont.cuh against FieldSpec, the R of 17-limb specs across
+convert.py, and the wrappers' refusals."""
 
 import re
 from pathlib import Path
@@ -22,12 +23,18 @@ from tpusnark.fields.spec import (
     BLS12_377_FR,
     BLS12_381_FP,
     BLS12_381_FR,
+    BLS24_315_FP,
+    BLS24_315_FR,
+    BLS24_317_FP,
+    BLS24_317_FR,
     BN254_FP,
     BN254_FR,
     BW6_633_FP,
+    BW6_633_FR,
     BW6_761_FP,
     BW6_761_FR,
 )
+from tpusnark_torch.fields.spec import FieldSpec
 from tpusnark_torch import kernels
 from tpusnark_torch.convert import from_torch, limbs_to_words, to_torch, words_to_limbs
 from tpusnark_torch.fields import tfield
@@ -46,8 +53,20 @@ SPECS = {
         BLS12_377_FP,
         BW6_761_FR,
         BW6_761_FP,
+        BLS24_315_FR,
+        BLS24_315_FP,
+        BLS24_317_FR,
+        BLS24_317_FP,
+        BW6_633_FR,
+        BW6_633_FP,
     )
 }
+# the specs the arithmetic tests run over: every width and R once (BLS24-315
+# fr has BN254's 8 words, BLS24-317 fp BLS24-315 fp's 10; the header test
+# checks their constants)
+ARITH = sorted(set(SPECS) - {"bls24_315_fr", "bls24_317_fp"})
+# a spec that no kernel serves: the Mersenne prime 2^89 - 1 over 8 limbs
+MADE_UP = FieldSpec("made_up_fp", (1 << 89) - 1, 8)
 N = 48
 
 
@@ -89,7 +108,7 @@ BINARY = {
 }
 
 
-@pytest.mark.parametrize("name", sorted(SPECS))
+@pytest.mark.parametrize("name", ARITH)
 @pytest.mark.parametrize("op", sorted(BINARY))
 def test_binary_matches_tpusnark(name, op):
     spec = SPECS[name]
@@ -102,7 +121,7 @@ def test_binary_matches_tpusnark(name, op):
     assert got == want_jax == want
 
 
-@pytest.mark.parametrize("name", sorted(SPECS))
+@pytest.mark.parametrize("name", ARITH)
 @pytest.mark.parametrize("op", ["neg", "double", "square", "to_mont", "canon"])
 def test_unary_matches_tpusnark(name, op):
     spec = SPECS[name]
@@ -116,7 +135,7 @@ def test_unary_matches_tpusnark(name, op):
     assert got == want
 
 
-@pytest.mark.parametrize("name", sorted(SPECS))
+@pytest.mark.parametrize("name", ARITH)
 def test_from_mont_matches_tpusnark(name):
     spec = SPECS[name]
     f, jf, xs, a, ja = both(spec, 4)
@@ -133,7 +152,7 @@ def word_ints(t):
     return [sum(int(w[k, i]) << (32 * k) for k in range(w.shape[0])) for i in range(w.shape[1])]
 
 
-@pytest.mark.parametrize("name", sorted(SPECS))
+@pytest.mark.parametrize("name", ARITH)
 def test_lazy_range_and_words_agree_with_tpusnark(name):
     """mul/add/sub keep [0, 2p). Where the port's R is tpusnark's (an even
     limb count) they give tpusnark's representatives bit for bit."""
@@ -150,7 +169,7 @@ def test_lazy_range_and_words_agree_with_tpusnark(name):
             assert f.decode(got) == jf.to_ints(want)
 
 
-@pytest.mark.parametrize("name", sorted(SPECS))
+@pytest.mark.parametrize("name", ARITH)
 def test_inv_mul_const_is_zero_select(name):
     spec = SPECS[name]
     p = spec.modulus
@@ -167,7 +186,7 @@ def test_inv_mul_const_is_zero_select(name):
     assert dec_port(f, f.select(cond, a, f.neg(a))) == [x if c else (-x) % p for x, c in zip(xs, cond.tolist())]
 
 
-@pytest.mark.parametrize("name", sorted(SPECS))
+@pytest.mark.parametrize("name", ARITH)
 def test_segment_sum_matches_tpusnark(name):
     spec = SPECS[name]
     f, jf, _, a, ja = both(spec, 7)
@@ -181,7 +200,7 @@ def test_segment_sum_matches_tpusnark(name):
     assert dec_port(f, got) == sums
 
 
-@pytest.mark.parametrize("name", sorted(SPECS))
+@pytest.mark.parametrize("name", ARITH)
 def test_encoding_round_trip_and_layout_conversion(name):
     """The port's words of canonical values are tpusnark's limbs converted
     by convert.py, both ways, at every word count."""
@@ -264,9 +283,10 @@ def test_24_word_products_with_long_carry_ripples_equal_python_ints():
 
 @pytest.mark.parametrize("rows", [16, 24, 39, 40, 48])
 def test_carry_resolution_agrees_on_both_sides_of_39_rows(rows):
-    """_lex_prefix is one log-step scan at every row count (weights of 3^j in
-    int64 were sound only up to 39 rows): random columns with planted runs
-    of 2^32 - 1 normalise to the integer they hold on either side of 39."""
+    """Carries are resolved at every row count the fields reach (weights of
+    3^j in int64 were sound only up to 39 rows): random columns with planted
+    runs of 2^32 - 1 normalise to the integer they hold on either side of
+    39."""
     rng = np.random.default_rng(rows)
     cols = torch.from_numpy(rng.integers(0, 1 << 40, size=(rows, 64), dtype=np.int64))
     cols[2 : rows - 1, :32] = 0xFFFFFFFF  # long runs that pass a carry on
@@ -334,8 +354,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
 def test_kernels_refuse_fields_and_ops_without_kernels(monkeypatch):
     """A spec or op without a kernel is refused before any build, so this
-    runs without nvcc: BW6-633's fields, neg of a scalar field, NTT
-    butterflies over a base field, the curve kernels over another field."""
+    runs without nvcc: a made-up field, neg of a scalar field, add and sub
+    of a base field under a G2 over Fp, NTT butterflies over a base field,
+    the curve kernels over another field."""
 
     def no_build():
         raise AssertionError("nothing may be built")
@@ -343,30 +364,38 @@ def test_kernels_refuse_fields_and_ops_without_kernels(monkeypatch):
     monkeypatch.setattr(kernels, "build", no_build)
     a = torch.zeros((12, 4), dtype=torch.int32)
     w = torch.zeros((20, 4), dtype=torch.int32)
-    with pytest.raises(ValueError, match="no CUDA kernels for field bw6_633_fp"):
-        kernels.field_binary("mul", BW6_633_FP, w, w)
-    with pytest.raises(ValueError, match="no CUDA kernels for field bw6_633_fp"):
-        kernels.field_unary("from_mont", BW6_633_FP, w)
+    m = torch.zeros((4, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="no CUDA kernels for field made_up_fp"):
+        kernels.field_binary("mul", MADE_UP, m, m)
+    with pytest.raises(ValueError, match="no CUDA kernels for field made_up_fp"):
+        kernels.field_unary("from_mont", MADE_UP, m)
     with pytest.raises(ValueError, match="no CUDA kernel neg for field bls12_377_fr"):
         kernels.field_unary("neg", BLS12_377_FR, a[:8])
     with pytest.raises(ValueError, match="no CUDA kernel neg for field bls12_381_fr"):
         kernels.field_unary("neg", BLS12_381_FR, a[:9])
-    # a base field adds and subtracts only in an Fp2 inversion: none over BW6-761's
+    # a base field adds and subtracts only in an Fp2 (or Fp4) inversion: none
+    # over the BW6 curves'
     g = torch.zeros((24, 4), dtype=torch.int32)
     for op in ("add", "sub"):
         with pytest.raises(ValueError, match=f"no CUDA kernel {op} for field bw6_761_fp"):
             kernels.field_binary(op, BW6_761_FP, g, g)
+        with pytest.raises(ValueError, match=f"no CUDA kernel {op} for field bw6_633_fp"):
+            kernels.field_binary(op, BW6_633_FP, w, w)
         assert f"{op}[bw6_761_fp]" not in kernels.LAUNCHES and f"{op}[bls12_377_fp]" in kernels.LAUNCHES
+        assert f"{op}[bw6_633_fp]" not in kernels.LAUNCHES and f"{op}[bls24_315_fp]" in kernels.LAUNCHES
     assert set(kernels.LAUNCHES) == {k for c in kernels.CURVES for k in kernels.instances(c)}
     with pytest.raises(ValueError, match="no NTT kernels"):
         kernels.butterfly(BLS12_381_FP, a, a, a)
     with pytest.raises(ValueError, match="no NTT kernels"):
         kernels.butterfly(BW6_761_FP, w, w, w)
-    with pytest.raises(ValueError, match="no CUDA curve kernels over bw6_633_fp"):
-        kernels.curve_op("add", True, BW6_633_FP, [w] * 6, [0] * 20)
+    with pytest.raises(ValueError, match="no CUDA curve kernels over made_up_fp"):
+        kernels.curve_op("add", True, MADE_UP, [m] * 6, [0] * 4)
+    with pytest.raises(ValueError, match="no NTT kernels"):
+        kernels.butterfly(BW6_633_FP, w, w, w)
     with pytest.raises(ValueError, match="expected 12 coordinate components"):  # G2 over Fp2
         kernels.curve_op("add", True, BLS12_377_FP, [a] * 6, [0] * 24)
     with pytest.raises(ValueError, match="expected 6 coordinate components"):  # G2 over Fp
         kernels.curve_op("add", True, BW6_761_FP, [w] * 12, [0] * 48)
-    assert kernels.curve_of(BLS12_381_FP) == "bls12-381" and kernels.curve_of(BW6_633_FP) is None
+    assert kernels.curve_of(BLS12_381_FP) == "bls12-381" and kernels.curve_of(MADE_UP) is None
+    assert kernels.curve_of(BW6_633_FP) == "bw6-633" and kernels.curve_of(BLS24_317_FP) == "bls24-317"
     assert kernels.curve_of(BLS12_377_FP) == "bls12-377" and kernels.curve_of(BW6_761_FP) == "bw6-761"

@@ -31,10 +31,14 @@ from tpusnark_torch.backend import groth16 as tg16
 from tpusnark_torch.backend.groth16 import bls381 as tbls381
 from tpusnark_torch.backend.groth16.keys import device_tables
 from tpusnark_torch.constraint.solver import solve as tsolve
-from tpusnark_torch.constraint.eval_torch import abc_evaluator
+from tpusnark_torch import kernels
+from tpusnark_torch.backend.groth16.keys import ported_curve
+from tpusnark_torch.constraint.eval_torch import ABCEvaluator, abc_evaluator
 from tpusnark_torch.convert import pk_tables, to_torch
 from tpusnark_torch.fields.tfield import get_field, n_words
+from tpusnark_torch.curves.config import get_curve as tget_curve
 from tpusnark_torch.frontend.builder import Builder as TBuilder
+from tpusnark_torch.poly.ntt import NTT, get_ntt
 
 torch.set_num_threads(1)  # the suite's workers fill the cores already
 
@@ -199,13 +203,15 @@ def test_commitment_circuits_are_refused(keys):
 @pytest.mark.parametrize("curve", ("bw6-633", "bls24-315"))
 def test_curves_without_kernels_are_refused(curve):
     """setup and prove refuse a curve whose kernels are not ported, before
-    any work, with NotImplementedError."""
+    any work, with NotImplementedError; `curve`, refused until its kernels
+    came, is admitted now."""
+    assert ported_curve(curve) is tget_curve(curve) and curve in kernels.CURVES
     cs = cubic_circuit(get_curve(curve).host.R, TBuilder)
-    with pytest.raises(NotImplementedError, match=f"curve {curve}: its kernels are not ported"):
-        tg16.setup(cs, rng=seeded(1, cs.modulus), device="cpu", curve=curve)
+    with pytest.raises(NotImplementedError, match="curve secp256k1: its kernels are not ported"):
+        tg16.setup(cs, rng=seeded(1, cs.modulus), device="cpu", curve="secp256k1")
     pk = tg16.ProvingKey.__new__(tg16.ProvingKey)
-    pk.curve = curve
-    with pytest.raises(NotImplementedError, match=f"curve {curve}"):
+    pk.curve = "secp256k1"
+    with pytest.raises(NotImplementedError, match="curve secp256k1"):
         tg16.prove(cs, pk, ASSIGN, device="cpu")
 
 
@@ -224,3 +230,20 @@ def test_entry_points_run_on_the_card_unless_the_caller_names_the_cpu(curve):
     pk.curve = curve
     with pytest.raises(RuntimeError, match="no CUDA card"):
         tg16.prove(cs, pk, ASSIGN)
+
+
+def test_layer_entry_points_run_on_the_card_unless_the_caller_names_the_cpu():
+    """NTT, get_ntt, ABCEvaluator and abc_evaluator default to the card, as
+    setup and prove do: with no card they raise and do not fall back to the
+    plain versions; named, the CPU runs them."""
+    for fn in (NTT.__init__, get_ntt, ABCEvaluator.__init__, abc_evaluator):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    spec = get_curve("bn254").fr_spec
+    cs = cubic_circuit(get_curve("bn254").host.R, TBuilder)
+    fr = get_field(spec)
+    assert get_ntt(spec, 8, "cpu").device.type == "cpu" and abc_evaluator(cs, fr, "cpu").device.type == "cpu"
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the default runs there")
+    for make in (lambda: NTT(spec, 8), lambda: get_ntt(spec, 8), lambda: ABCEvaluator(cs, fr), lambda: abc_evaluator(cs, fr)):
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            make()

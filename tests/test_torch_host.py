@@ -47,7 +47,7 @@ jsetup, jverify = (import_module(f"tpusnark.backend.groth16.{n}") for n in ("set
 tsetup, tverify = (import_module(f"tpusnark_torch.backend.groth16.{n}") for n in ("setup", "verify"))
 
 ALL_CURVES = ("bn254", "bls12-381", "bls12-377", "bw6-761", "bls24-315", "bls24-317", "bw6-633")
-HOST_CURVES = ALL_CURVES[:4]
+HOST_CURVES = ALL_CURVES  # every curve has its host module in the port
 SPEC_FIELDS = [f.name for f in dataclasses.fields(jspec.FieldSpec)]
 
 
@@ -102,12 +102,10 @@ def test_get_curve_fields_equal_tpusnark(curve):
         if name.endswith("_spec"):
             a, b = spec_values(a), spec_values(b)
         assert a == b, name
-    if curve in HOST_CURVES:
-        assert ours.host.__name__.rsplit(".", 1)[1] == theirs.host.__name__.rsplit(".", 1)[1]
-        assert (ours.host.P, ours.host.R) == (theirs.host.P, theirs.host.R)
-    else:  # no kernels and no host module in the port yet
-        with pytest.raises(NotImplementedError, match=curve):
-            ours.host
+    # the port's own host module, tpusnark's code under the same name
+    assert ours.host.__name__ == theirs.host.__name__.replace("tpusnark.", "tpusnark_torch.")
+    assert ours.host is not theirs.host
+    assert (ours.host.P, ours.host.R) == (theirs.host.P, theirs.host.R)
     with pytest.raises(ValueError, match="unknown curve"):
         tcurves.get_curve("secp256k1")
 
@@ -120,7 +118,9 @@ def plain(v):
         return tuple(plain(x) for x in v)
     if hasattr(v, "c0"):
         return (plain(v.c0), plain(v.c1))
-    return tuple(plain(x) for x in v.c)  # bw6761.Fp6
+    if hasattr(v, "v"):  # tower.prime_field
+        return v.v
+    return tuple(plain(x) for x in v.c)  # bw6761.Fp6, tower extensions
 
 
 @pytest.mark.parametrize("curve", HOST_CURVES)
@@ -145,7 +145,7 @@ def test_host_curve_group_laws_equal_tpusnark(curve):
         assert ours.G1.on_curve(ours.G1.generator()) and ours.G2.in_subgroup(ours.G2.generator())
 
 
-@pytest.mark.parametrize("curve", ("bn254", "bls12-381", "bls12-377"))
+@pytest.mark.parametrize("curve", ("bn254", "bls12-381", "bls12-377", "bw6-633"))
 def test_host_pairings_equal_tpusnark(curve):
     ours, theirs = tcurves.get_curve(curve).host, jcurves.get_curve(curve).host
     a, b = 5, 7
@@ -189,6 +189,20 @@ def test_bw6761_host_module_is_tpusnark_code():
     f = ours.Fp6(tuple(range(3, 9)))
     assert plain(ours.final_exp(f)) == plain(theirs.final_exp(theirs.Fp6(tuple(range(3, 9)))))
     assert ours.final_exp(f).pow(ours.R).is_one()
+
+
+@pytest.mark.parametrize("name", ("tower", "bls24", "bls24315", "bls24317", "bw6633"))
+def test_bls24_and_bw6633_host_modules_are_tpusnark_code(name):
+    """The tower, the BLS24 factory and the three curves' modules are
+    tpusnark's code; their constants and a G2 scalar multiple agree."""
+    ours = import_module(f"tpusnark_torch.curves.{name}")
+    theirs = import_module(f"tpusnark.curves.{name}")
+    assert code_of(ours) == code_of(theirs)
+    if name in ("bls24315", "bls24317", "bw6633"):
+        for const in ("P", "R", "G1_GEN", "G2_GEN"):
+            assert plain(getattr(ours, const)) == plain(getattr(theirs, const)), const
+        k = 0x1234567
+        assert plain(ours.G2.mul(ours.G2.generator(), k)) == plain(theirs.G2.mul(theirs.G2.generator(), k))
 
 
 def circuit(mod, p):
@@ -345,7 +359,7 @@ def check_verifiers(curve):
             mod.verify(off, vk, pubs, curve=curve)
 
 
-@pytest.mark.parametrize("curve", ("bn254", "bls12-381", "bls12-377"))
+@pytest.mark.parametrize("curve", ("bn254", "bls12-381", "bls12-377", "bw6-633"))
 def test_verifiers_give_tpusnark_verdicts_on_a_good_and_a_bad_proof(curve):
     check_verifiers(curve)
 

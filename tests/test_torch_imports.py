@@ -1,6 +1,7 @@
 """The port stands alone: every module of tpusnark_torch and chip_smoke.py
 import, and a tiny Groth16 setup and prove run per curve family (G2 over
-Fp2; G2 over Fp), in a process where neither ``jax`` nor the JAX package
+Fp2: BLS12-377; over Fp: BW6-761 and BW6-633; over Fp4: BLS24-315 and
+BLS24-317), in a process where neither ``jax`` nor the JAX package
 ``tpusnark`` can be imported. chip_smoke.py exits non-zero, with no result
 line, where there is no CUDA device and where it stands alone."""
 
@@ -10,6 +11,8 @@ import shutil
 import subprocess
 import sys
 import textwrap
+
+import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -34,6 +37,7 @@ IMPORT_ALL = BLOCK + textwrap.dedent(
     import chip_smoke
     for name in ("backend.groth16.prove", "backend.groth16.verify", "backend.groth16.bls381",
                  "curves.ref", "curves.bls12381", "curves.bls12377", "curves.bw6761",
+                 "curves.tower", "curves.bls24", "curves.bls24315", "curves.bls24317", "curves.bw6633",
                  "constraint.solver", "frontend.builder", "fields.spec", "poly.domain"):
         assert "tpusnark_torch." + name in names, name
     assert "tpusnark_torch._host" not in names
@@ -62,11 +66,11 @@ PATH = BLOCK + textwrap.dedent(
     cfg = get_curve(curve)
     host, fp, fr = cfg.host, get_field(cfg.fp_spec), get_field(cfg.fr_spec)
     g1, g2 = curve_ops(curve)
-    assert (g1.group, g2.group, g2.fp2) == ("g1", "g2", not cfg.g2_over_fp)
+    assert (g1.group, g2.group, g2.degree) == ("g1", "g2", 1 if cfg.g2_over_fp else 4 if cfg.g2_fp4 else 2)
     pts = [host.G1.generator(), None, host.G1.mul(host.G1.generator(), 3)]
     out = get_msm("g1", 4, curve)(g1_to_device(pts, fp), fr.encode([5, 7, 0], mont=False))
     assert g1_from_device_proj(out, fp) == [host.G1.mul(host.G1.generator(), 5)]
-    ntt = get_ntt(cfg.fr_spec, 8)
+    ntt = get_ntt(cfg.fr_spec, 8, "cpu")
     assert ntt.field.decode(ntt.intt(ntt.ntt(fr.encode(list(range(8)))))) == list(range(8))
 
     if not {groth16}:
@@ -136,6 +140,62 @@ def test_fp_g2_path_runs_without_jax_and_tpusnark():
     res = _run([sys.executable, "-c", _path("bw6-761", verify=False)], ROOT)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "bw6-761 ok"
+
+
+@pytest.mark.parametrize("curve", ("bls24-315", "bls24-317", "bw6-633"))
+def test_bls24_and_bw6633_paths_run_without_jax_and_tpusnark(curve):
+    """BLS24-315 and BLS24-317 (G2 over Fp4) and BW6-633 (20-word Fp): curve
+    ops, MSM and NTT here; their Groth16 setup and prove run without jax and
+    tpusnark in groth16_without_jax, the module fixture of
+    tests/test_torch_bls24.py and tests/test_torch_bw6633.py, whose tests
+    hold the keys and the proof against tpusnark."""
+    res = _run([sys.executable, "-c", _path(curve, groth16=False)], ROOT)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == f"{curve} ok"
+
+
+# Setup and prove of the cubic circuit over `curve`, seeded as the Groth16
+# tests seed tpusnark's, pickled to `out` as chip_smoke.portable makes them
+# (the Fp4 tower's classes are made at run time and do not pickle).
+GROTH16 = BLOCK + textwrap.dedent(
+    """
+    import pickle, random
+    from chip_smoke import portable
+    from tpusnark_torch.backend.groth16 import prove, setup
+    from tpusnark_torch.curves.config import get_curve
+    from tpusnark_torch.frontend.builder import Builder
+    curve = {curve!r}
+    host = get_curve(curve).host
+    b = Builder(host.R)
+    x, y = b.secret("x"), b.public("y")
+    b.assert_is_equal(b.add(b.mul(x, x, x), x, 5), y)
+    cs = b.compile()
+    rng, prng = random.Random(42), random.Random(7)
+    pk, vk = setup(cs, rng=lambda: rng.randrange(1, host.R), device="cpu", curve=curve)
+    timings = {{}}
+    proof = prove(cs, pk, {{"x": 3, "y": 35}}, rng=lambda: prng.randrange(host.R), timings=timings, device="cpu")
+    assert sys.modules["jax"] is None and sys.modules["tpusnark"] is None
+    with open({out!r}, "wb") as f:
+        pickle.dump(portable((pk, vk, proof, sorted(timings))), f)
+    """
+)
+
+
+def groth16_without_jax(curve, tmp_dir):
+    """(pk, vk, proof, phase names) of the port's setup and prove of the
+    cubic circuit over `curve` (rngs seeded 42 and 7), computed in a process
+    where jax and tpusnark cannot be imported; the host points are the port's
+    own classes again."""
+    import pickle
+
+    import chip_smoke
+    from tpusnark_torch.curves.config import get_curve
+
+    out = os.path.join(str(tmp_dir), f"groth16-{curve}.pickle")
+    res = _run([sys.executable, "-c", GROTH16.format(root=ROOT, curve=curve, out=out)], ROOT)
+    assert res.returncode == 0, res.stderr
+    with open(out, "rb") as f:
+        return chip_smoke.restored(pickle.load(f), get_curve(curve).host)
 
 
 def test_the_port_and_chip_smoke_name_no_tpusnark_import():

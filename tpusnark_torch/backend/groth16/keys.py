@@ -6,7 +6,7 @@ gnark/backend/groth16/bn254/setup.go:35-82 and the icicle device-resident
 variant gnark/backend/groth16/bn254/icicle/provingkey.go:11-36.
 
 Host-side points are python-int affine tuples ((x, y) | None; G2 uses the
-curve's Fp2 coordinates, or plain ints where G2 lies over Fp): the
+curve's Fp2 or Fp4 coordinates, or plain ints where G2 lies over Fp): the
 serializable form. The containers are the port's own copies of tpusnark's
 dataclasses, field for field. Device residency is lazy and per device: on
 the first prove the tables are encoded into word tensors and cached on the
@@ -19,7 +19,7 @@ from dataclasses import dataclass, field
 
 from ... import kernels
 from ...curves.config import get_curve
-from ...curves.encoding import g1_to_device, g2_to_device
+from ...curves.encoding import g1_to_device, g2_to_device, g4_to_device
 from ...fields.tfield import canonical_device, get_field
 
 
@@ -102,8 +102,8 @@ def device_tables(pk, device) -> dict:
     if key not in pk._dev:
         fp = get_field(cfg.fp_spec)
         # BW6: G2 points have plain Fp coordinates (sextic twist over Fp):
-        # encode them with the G1 layout
-        enc_g2 = g1_to_device if cfg.g2_over_fp else g2_to_device
+        # encode them with the G1 layout; BLS24: Fp4 coordinates
+        enc_g2 = g1_to_device if cfg.g2_over_fp else g4_to_device if cfg.g2_fp4 else g2_to_device
         pk._dev[key] = {
             "a": g1_to_device(pk.a, fp, device),
             "b1": g1_to_device(pk.b1, fp, device),

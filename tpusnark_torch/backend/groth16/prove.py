@@ -1,6 +1,7 @@
 """Groth16 prover on torch tensors (counterpart of
 tpusnark/backend/groth16/prove.py), over any curve whose kernels are ported
-(BN254, BLS12-381, BLS12-377 and BW6-761); the curve is the proving key's.
+(BN254, BLS12-381, BLS12-377, BW6-761, BW6-633, BLS24-315 and BLS24-317);
+the curve is the proving key's.
 
 Pipeline: solve the witness on the host (``constraint/solver.py``),
 evaluate A/B/C on the device, compute the quotient H (3 INTT, 3 coset NTT,
@@ -19,7 +20,7 @@ import torch
 
 from ...constraint.eval_torch import abc_evaluator
 from ...constraint.solver import solve
-from ...curves.encoding import g1_from_device_proj, g2_from_device_proj
+from ...curves.encoding import g1_from_device_proj, g2_from_device_proj, g4_from_device_proj
 from ...fields.tfield import compute_device, get_field
 from ...msm.pippenger import get_msm_for
 from ...poly.ntt import get_ntt
@@ -104,6 +105,8 @@ def prove(cs, pk, assignment: dict, rng=None, config=None, timings: dict | None 
     (bs1_sum,) = g1_from_device_proj(bs1_raw, fp)
     if cfg.g2_over_fp:  # G2 points are plain int pairs: the G1 decoder
         (bs2_sum,) = g1_from_device_proj(bs2_raw, fp)
+    elif cfg.g2_fp4:
+        (bs2_sum,) = g4_from_device_proj(bs2_raw, fp, cfg.host.Fp4, cfg.host.Fp2)
     else:
         (bs2_sum,) = g2_from_device_proj(bs2_raw, fp, cfg.host.Fp2, cfg.fp2_q)
     (krs_k_sum,) = g1_from_device_proj(krs_k, fp)

@@ -9,8 +9,11 @@ is one lane of two batched fixed-base multiplications (G1 and G2,
 batched Fermat inversion) and kept there as the prover's point tables; the
 host copies in the returned ``ProvingKey`` and ``VerifyingKey`` are decoded
 from them, as points of the curve's host module. Curves whose kernels are
-ported: BN254, BLS12-381, BLS12-377 and BW6-761 (whose G2 lies over Fp: its
-points are plain int pairs). BSB22 commitments are not ported yet.
+ported: BN254, BLS12-381, BLS12-377, the BW6 curves (whose G2 lies over Fp:
+its points are plain int pairs) and the BLS24 curves (G2 over Fp4: tpusnark
+multiplies their G2 keys on the host, one ladder a point; here they are
+lanes of the same batched multiplication). BSB22 commitments are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -94,36 +97,59 @@ def k_pk_wires_for(cs: ConstraintSystem) -> list[int]:
     ]
 
 
+def _fp2_inv(fa2, x):
+    """Inverse over Fp[u]/(u^2 + q): (a + bu)^-1 = (a - bu) / (a^2 + q b^2);
+    inv(0) = 0."""
+    f = fa2.f
+    a, b = x
+    d = f.inv(f.add(f.mul(a, a), small_mul(f, f.mul(b, b), fa2.q)))
+    return (f.mul(a, d), f.neg(f.mul(b, d)))
+
+
+def _fp4_inv(fa4, x):
+    """Inverse over Fp2[v]/(v^2 - Z2) through the norm: (a + bv)^-1 =
+    (a - bv) / (a^2 - Z2 b^2), the norm inverted over Fp2; inv(0) = 0."""
+    f2 = fa4.f2
+    a, b = x
+    aa, bb = f2.mul_many([(a, a), (b, b)])
+    ni = _fp2_inv(f2, f2.sub(aa, fa4._mul_z2(bb)))
+    return (f2.mul(a, ni), f2.neg(f2.mul(b, ni)))
+
+
 def to_affine(ops, pt):
-    """Projective points -> device affine (X, Y, inf); inf lanes hold (0, 1)."""
+    """Projective points -> device affine (X, Y, inf); inf lanes hold (0, 1).
+    Over Fp2 and Fp4 the inverse of Z goes down the tower to one batched
+    Fermat inversion over Fp."""
     fa = ops.fa
-    f = fa.f
     X, Y, Z = pt
     inf = fa.is_zero(Z)
-    if ops.fp2:
-        # over u^2 = -q: (a + bu)^-1 = (a - bu) / (a^2 + q b^2)
-        a, b = Z
-        d = f.inv(f.add(f.mul(a, a), small_mul(f, f.mul(b, b), fa.q)))
-        zi = (f.mul(a, d), f.neg(f.mul(b, d)))
-    else:
-        zi = f.inv(Z)
+    zi = _fp4_inv(fa, Z) if ops.fp4 else _fp2_inv(fa, Z) if ops.fp2 else fa.f.inv(Z)
     x, y = fa.mul(X, zi), fa.mul(Y, zi)
     ident = ops.identity_like(x)
     return (fa.select(inf, ident[0], x), fa.select(inf, ident[1], y), inf)
 
 
-def to_host(ops, aff, fp2_cls):
-    """Device affine points -> list[(x, y) | None] (over Fp2: fp2_cls
-    coordinates, the curve's host Fp2 class; over Fp: plain ints)."""
+def to_host(ops, aff, host):
+    """Device affine points -> list[(x, y) | None] as points of the curve's
+    host module `host`: coordinates of its Fp4 class (G2 over Fp4), its Fp2
+    class (over Fp2), or plain ints (over Fp)."""
     f = ops.fa.f
     X, Y, inf = aff
     comps = [c for v in (X, Y) for c in ops.fa.components(v)]
     vals = [f.decode(f.from_mont(c), mont=False) for c in comps]
     inf = inf.cpu().tolist()
+    if ops.fp4:
+        Fp2, Fp4 = host.Fp2, host.Fp4
+
+        def coord(c, i):
+            return Fp4((Fp2((c[0][i], c[1][i])), Fp2((c[2][i], c[3][i]))))
+
+        xs, ys = vals[:4], vals[4:]
+        return [None if inf[i] else (coord(xs, i), coord(ys, i)) for i in range(len(inf))]
     if ops.fp2:
         x0, x1, y0, y1 = vals
         return [
-            None if inf[i] else (fp2_cls(x0[i], x1[i]), fp2_cls(y0[i], y1[i]))
+            None if inf[i] else (host.Fp2(x0[i], x1[i]), host.Fp2(y0[i], y1[i]))
             for i in range(len(inf))
         ]
     xs, ys = vals
@@ -136,7 +162,7 @@ def _batch(cfg, ops, ladder, scalars, device):
     mul = FixedBaseMul(ops, fr)
     table = ladder(fp, mul.n_bits, cfg.name, device)
     aff = to_affine(ops, mul(table, fr.encode(scalars, mont=False, device=device)))
-    return aff, to_host(ops, aff, cfg.host.Fp2 if ops.fp2 else None)
+    return aff, to_host(ops, aff, cfg.host)
 
 
 def _cols(aff, lo: int, hi: int):

@@ -11,21 +11,22 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..fields.tfield import Field, canonical_device
+from ..fields.tfield import Field, compute_device
 
 
 class ABCEvaluator:
-    """Bound to one ConstraintSystem, field and device.
+    """Bound to one ConstraintSystem, field and device (the card unless the
+    caller names the CPU).
 
     __call__(w_mont) -> (A, B, C), each (words, n_constraints) Montgomery,
     for w_mont (words, n_wires) Montgomery words on the same device. The
     segment sums hold at any word count: a column sums at most 2^16 words
     < 2^32 (Field.segment_sum)."""
 
-    def __init__(self, cs, field: Field, device="cpu"):
+    def __init__(self, cs, field: Field, device="cuda"):
         self.field = field
         self.n_constraints = len(cs.constraints)
-        self.device = canonical_device(device)
+        self.device = compute_device(device)
         self.coeffs = field.encode(cs.coeffs, mont=True, device=self.device)
         self.parts = {}
         for name, (rows, cids, vids) in cs.term_arrays().items():
@@ -45,10 +46,11 @@ class ABCEvaluator:
         return tuple(self._one(w_mont, *self.parts[name]) for name in ("L", "R", "O"))
 
 
-def abc_evaluator(cs, field: Field, device) -> ABCEvaluator:
-    """Evaluator cached on the constraint system, per field and device."""
+def abc_evaluator(cs, field: Field, device="cuda") -> ABCEvaluator:
+    """Evaluator cached on the constraint system, per field and device (the
+    card unless the caller names the CPU)."""
     cache = cs.__dict__.setdefault("_torch_abc_cache", {})
-    key = (field.spec.name, str(canonical_device(device)))
+    key = (field.spec.name, str(compute_device(device)))
     ev = cache.get(key)
     if ev is None:
         ev = cache[key] = ABCEvaluator(cs, field, device)

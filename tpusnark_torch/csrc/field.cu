@@ -1,7 +1,8 @@
 // Elementwise field kernels over (N, lanes) limb-major words, one template
-// per op instantiated for every field id of mont.cuh: BN254 fr/fp and
-// BLS12-377 fr (8 words), BLS12-381 fr (9), BLS12-381 fp, BLS12-377 fp and
-// BW6-761 fr (12), BW6-761 fp (24).
+// per op instantiated for every field id of mont.cuh: BN254 fr/fp,
+// BLS12-377 fr and BLS24-315 fr (8 words), BLS12-381 fr and BLS24-317 fr
+// (9), BLS24-315 fp, BLS24-317 fp and BW6-633 fr (10), BLS12-381 fp,
+// BLS12-377 fp and BW6-761 fr (12), BW6-633 fp (20), BW6-761 fp (24).
 //
 // Replaces the TPU kernels
 //   B1  tpusnark/fields/jfield.py Field._mul_impl   (fused through fields/fuse.py)
@@ -12,8 +13,8 @@
 //
 // Bound on the H100: a mul reads 8N bytes and writes 4N per lane and does
 // 4N^2 + N 32-bit multiply-adds (2N^2 word products, a low and a high half
-// each, and N low halves for the m's: 264 at 8 words, 588 at 12, 2,328 at
-// 24), so at 2^17 lanes it is launch- and memory-bound up to 12 words; one lane per thread with coalesced word
+// each, and N low halves for the m's: 264 at 8 words, 410 at 10, 588 at 12,
+// 1,620 at 20, 2,328 at 24), so at 2^17 lanes it is launch- and memory-bound up to 12 words; one lane per thread with coalesced word
 // rows is the simple design that reads every byte once. add/sub/neg are pure
 // memory traffic.
 #include "mont.cuh"
@@ -93,7 +94,8 @@ int launch_unary(int op, const void* a, void* out, long n, cudaStream_t st) {
   if (op == 0) {
     k_from_mont<F><<<blocks, THREADS, 0, st>>>(A, O, n);
   } else {
-    if constexpr (F == BN254_FP || F == BLS12_381_FP || F == BLS12_377_FP || F == BW6_761_FP)
+    if constexpr (F == BN254_FP || F == BLS12_381_FP || F == BLS12_377_FP || F == BW6_761_FP ||
+                  F == BLS24_315_FP || F == BLS24_317_FP || F == BW6_633_FP)
       k_neg<F><<<blocks, THREADS, 0, st>>>(A, O, n);
     else
       return (int)cudaErrorInvalidValue;
@@ -113,6 +115,12 @@ int binary(int op, int field, const void* a, const void* b, void* out, long n, v
     case BLS12_377_FP: return launch_binary<BLS12_377_FP>(op, a, b, out, n, st);
     case BW6_761_FR: return launch_binary<BW6_761_FR>(op, a, b, out, n, st);
     case BW6_761_FP: return launch_binary<BW6_761_FP>(op, a, b, out, n, st);
+    case BLS24_315_FR: return launch_binary<BLS24_315_FR>(op, a, b, out, n, st);
+    case BLS24_315_FP: return launch_binary<BLS24_315_FP>(op, a, b, out, n, st);
+    case BLS24_317_FR: return launch_binary<BLS24_317_FR>(op, a, b, out, n, st);
+    case BLS24_317_FP: return launch_binary<BLS24_317_FP>(op, a, b, out, n, st);
+    case BW6_633_FR: return launch_binary<BW6_633_FR>(op, a, b, out, n, st);
+    case BW6_633_FP: return launch_binary<BW6_633_FP>(op, a, b, out, n, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -129,6 +137,12 @@ int unary(int op, int field, const void* a, void* out, long n, void* stream) {
     case BLS12_377_FP: return launch_unary<BLS12_377_FP>(op, a, out, n, st);
     case BW6_761_FR: return launch_unary<BW6_761_FR>(op, a, out, n, st);
     case BW6_761_FP: return launch_unary<BW6_761_FP>(op, a, out, n, st);
+    case BLS24_315_FR: return launch_unary<BLS24_315_FR>(op, a, out, n, st);
+    case BLS24_315_FP: return launch_unary<BLS24_315_FP>(op, a, out, n, st);
+    case BLS24_317_FR: return launch_unary<BLS24_317_FR>(op, a, out, n, st);
+    case BLS24_317_FP: return launch_unary<BLS24_317_FP>(op, a, out, n, st);
+    case BW6_633_FR: return launch_unary<BW6_633_FR>(op, a, out, n, st);
+    case BW6_633_FP: return launch_unary<BW6_633_FP>(op, a, out, n, st);
   }
   return (int)cudaErrorInvalidValue;
 }

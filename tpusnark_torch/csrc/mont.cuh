@@ -5,9 +5,11 @@
 // Elements are N little-endian 32-bit words in Montgomery form with
 // R = 2^(32 N), stored limb-major: word w of lane i of an (N, lanes) tensor
 // sits at ptr[w * lanes + i], so consecutive threads read consecutive words.
-// N is ceil(n_limbs / 2) of the field's FieldSpec: 8 for BN254 fr and fp and
-// BLS12-377 fr, 9 for BLS12-381 fr, 12 for BLS12-381 fp, BLS12-377 fp and
-// BW6-761 fr (the same modulus: the 2-chain), 24 for BW6-761 fp.
+// N is ceil(n_limbs / 2) of the field's FieldSpec: 8 for BN254 fr and fp,
+// BLS12-377 fr and BLS24-315 fr, 9 for BLS12-381 fr and BLS24-317 fr, 10
+// for BLS24-315 fp, BLS24-317 fp and BW6-633 fr (the same modulus as
+// BLS24-315 fp: the 2-chain), 12 for BLS12-381 fp, BLS12-377 fp and BW6-761
+// fr (the same modulus: the 2-chain), 20 for BW6-633 fp, 24 for BW6-761 fp.
 //
 // The lazy-range contract is tpusnark's (fields/jfield.py): inputs and
 // outputs of mul/add/sub lie in [0, 2p). It is sound because 4p < R for
@@ -33,11 +35,21 @@ enum FieldId {
   BLS12_377_FR = 4,
   BLS12_377_FP = 5,
   BW6_761_FR = 6,
-  BW6_761_FP = 7
+  BW6_761_FP = 7,
+  BLS24_315_FR = 8,
+  BLS24_315_FP = 9,
+  BLS24_317_FR = 10,
+  BLS24_317_FP = 11,
+  BW6_633_FR = 12,
+  BW6_633_FP = 13
 };
 
+constexpr int N_FIELDS = 14;
+
 __host__ __device__ constexpr int words_of(int f) {
-  return f == BLS12_381_FR ? 9 : f == BLS12_381_FP ? 12 : f == BLS12_377_FP ? 12 : f == BW6_761_FR ? 12 : f == BW6_761_FP ? 24 : 8;
+  return f == BLS12_381_FR ? 9 : f == BLS12_381_FP ? 12 : f == BLS12_377_FP ? 12 : f == BW6_761_FR ? 12
+       : f == BW6_761_FP ? 24 : f == BLS24_315_FP ? 10 : f == BLS24_317_FR ? 9 : f == BLS24_317_FP ? 10
+       : f == BW6_633_FR ? 10 : f == BW6_633_FP ? 20 : 8;
 }
 
 struct Mod {
@@ -48,7 +60,7 @@ struct Mod {
 
 // One entry per field id; tests/test_torch_field.py checks every value
 // against the FieldSpec of the same name.
-static __constant__ Mod MODS[8] = {
+static __constant__ Mod MODS[N_FIELDS] = {
     // field 0: bn254_fr, 8 words
     {{0xf0000001u, 0x43e1f593u, 0x79b97091u, 0x2833e848u, 0x8181585du,
       0xb85045b6u, 0xe131a029u, 0x30644e72u},
@@ -109,6 +121,46 @@ static __constant__ Mod MODS[8] = {
       0xe0f74c71u, 0x010f7c82u, 0xa504ebdfu, 0x03a28d10u, 0x724c30d5u,
       0x09f5fe7du, 0xa30f9280u, 0xf7079c15u, 0x0245d049u},
      0x8fa798ddu},
+    // field 8: bls24_315_fr, 8 words
+    {{0x00c00001u, 0x19d0c5fdu, 0xe644e364u, 0xc8c480ecu, 0xcf927a98u,
+      0x25fc7ec9u, 0x4a9da12bu, 0x196deac2u},
+     {0x01800002u, 0x33a18bfau, 0xcc89c6c8u, 0x918901d9u, 0x9f24f531u,
+      0x4bf8fd93u, 0x953b4256u, 0x32dbd584u},
+     0x00bfffffu},
+    // field 9: bls24_315_fp, 10 words
+    {{0x40300001u, 0x6fe802ffu, 0x52bde502u, 0x421ee5dau, 0xa27a1ae0u,
+      0xdec1d01au, 0xe97c5eafu, 0xd3f7498bu, 0xb586d650u, 0x04c23a02u},
+     {0x80600002u, 0xdfd005feu, 0xa57bca04u, 0x843dcbb4u, 0x44f435c0u,
+      0xbd83a035u, 0xd2f8bd5fu, 0xa7ee9317u, 0x6b0daca1u, 0x09847405u},
+     0x402fffffu},
+    // field 10: bls24_317_fr, 9 words
+    {{0x00000001u, 0xf0000000u, 0x96bf0e7au, 0x1cd1e791u, 0x8d83cd49u,
+      0xd0b097f2u, 0xa68dafc2u, 0x443f917eu, 0x00000000u},
+     {0x00000002u, 0xe0000000u, 0x2d7e1cf5u, 0x39a3cf23u, 0x1b079a92u,
+      0xa1612fe5u, 0x4d1b5f85u, 0x887f22fdu, 0x00000000u},
+     0xffffffffu},
+    // field 11: bls24_317_fp, 10 words
+    {{0x5dab2aabu, 0x8d512e56u, 0x3424bf7eu, 0xd6f339e4u, 0x84c73446u,
+      0x169a61e6u, 0xb7f9d039u, 0xf28fc5a0u, 0x6f60892cu, 0x1058ca22u},
+     {0xbb565556u, 0x1aa25cacu, 0x68497efdu, 0xade673c8u, 0x098e688du,
+      0x2d34c3cdu, 0x6ff3a072u, 0xe51f8b41u, 0xdec11259u, 0x20b19444u},
+     0x8b047ffdu},
+    // field 12: bw6_633_fr, 10 words
+    {{0x40300001u, 0x6fe802ffu, 0x52bde502u, 0x421ee5dau, 0xa27a1ae0u,
+      0xdec1d01au, 0xe97c5eafu, 0xd3f7498bu, 0xb586d650u, 0x04c23a02u},
+     {0x80600002u, 0xdfd005feu, 0xa57bca04u, 0x843dcbb4u, 0x44f435c0u,
+      0xbd83a035u, 0xd2f8bd5fu, 0xa7ee9317u, 0x6b0daca1u, 0x09847405u},
+     0x402fffffu},
+    // field 13: bw6_633_fp, 20 words
+    {{0x4570000du, 0xd74916eau, 0x1147f73cu, 0x3d369bd3u, 0xb839c225u,
+      0xd7b5ce7au, 0xedbda407u, 0x7e0e8850u, 0x83f57c49u, 0xb8da9f5eu,
+      0xfadea490u, 0x8152a6c0u, 0xd9bbda2fu, 0x4e59769au, 0x5d79d2c7u,
+      0xa8fcd8c7u, 0x01d72ab5u, 0xfc1a174fu, 0xc0f35f63u, 0x0126633cu},
+     {0x8ae0001au, 0xae922dd4u, 0x228fee79u, 0x7a6d37a6u, 0x7073844au,
+      0xaf6b9cf5u, 0xdb7b480fu, 0xfc1d10a1u, 0x07eaf892u, 0x71b53ebdu,
+      0xf5bd4921u, 0x02a54d81u, 0xb377b45fu, 0x9cb2ed35u, 0xbaf3a58eu,
+      0x51f9b18eu, 0x03ae556bu, 0xf8342e9eu, 0x81e6bec7u, 0x024cc679u},
+     0x0b03b13bu},
 };
 
 template <int N>
@@ -299,6 +351,28 @@ __device__ __forceinline__ Elt2<F> mul2(const Elt2<F>& a, const Elt2<F>& b) {
   EltOf<F> t1 = mul<F>(a.c1, b.c1);
   EltOf<F> t2 = mul<F>(asum, bsum);
   return {sub<F>(t0, small_mul<F, Q>(t1)), sub<F>(t2, add<F>(t0, t1))};
+}
+
+// ---- Fp4 = Fp2[v]/(v^2 - Z2): tpusnark's Fp4Arith (BLS24 G2) ---------------
+template <int F>
+struct Elt4 {
+  Elt2<F> c0, c1;
+};
+
+// x * Z2 over Fp2 for the small constant Z2 = Z0 + Z1 u (u^2 = -Q), in the
+// order of tpusnark's Fp4Arith._mul_z2:
+// (c0 + c1 u)(Z0 + Z1 u) = (Z0 c0 - Q Z1 c1) + (Z0 c1 + Z1 c0) u.
+template <int F, int Q, int Z0, int Z1>
+__device__ __forceinline__ Elt2<F> mul_z2(const Elt2<F>& x) {
+  static_assert(Z0 >= 0 && Z1 >= 0 && (Z0 || Z1), "a small nonzero Z2 expected");
+  if constexpr (Z0 && Z1) {
+    return {add<F>(small_mul<F, Z0>(x.c0), neg<F>(small_mul<F, Q * Z1>(x.c1))),
+            add<F>(small_mul<F, Z0>(x.c1), small_mul<F, Z1>(x.c0))};
+  } else if constexpr (Z0) {
+    return {small_mul<F, Z0>(x.c0), small_mul<F, Z0>(x.c1)};
+  } else {
+    return {neg<F>(small_mul<F, Q * Z1>(x.c1)), small_mul<F, Z1>(x.c0)};
+  }
 }
 
 }  // namespace ts

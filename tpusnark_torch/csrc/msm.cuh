@@ -25,8 +25,9 @@
 // pointwise kernels coordinate by coordinate (not only as a group element).
 //
 // Bound on the H100: operations. A strip pass is R x lanes complete adds of
-// 11-14 Montgomery products against two element rows read and three written
-// per row-lane; the accumulator no longer travels through device memory.
+// 11-14 Montgomery products (over Fp4 each is nine: ~3,700 multiply-adds at
+// 10 words) against two element rows read and three written per row-lane;
+// the accumulator no longer travels through device memory.
 // Parallelism is windows x strips lanes (32,768 at 16 windows): 64-thread
 // blocks put ~8 warps on an SM, so the integer pipes wait on their carry
 // chains; that is the occupancy the MSM's shape gives. The Horner is one
@@ -51,15 +52,15 @@
 namespace ts {
 
 struct MsmArgs {
-  const uint32_t* in[12];  // coordinate components, as in CurveArgs
-  uint32_t* out[6];
+  const uint32_t* in[6 * MAX_COMPONENTS];  // coordinate components, as in CurveArgs
+  uint32_t* out[3 * MAX_COMPONENTS];
   const int64_t* key;    // strip: sorted keys (W, C*R); scan step: keys (lanes) or null
   const int64_t* order;  // strip, MIXED: the base of each sorted record (W, C*R)
   const uint8_t* sign;   // strip, MIXED: records whose base is negated (W, C*R)
   int64_t* out_key;      // strip: flush keys (W, (R+1)*C)
   int64_t n[8];          // sizes, per kernel (see each kernel)
   Const b3;              // 3b or 3b'
-  Const one;             // 1 (over Fp2: (1, 0))
+  Const one;             // 1 (over Fp2: (1, 0); over Fp4: ((1, 0), (0, 0)))
 };
 
 constexpr int STRIP_THREADS = 64;
@@ -263,13 +264,18 @@ int launch_msm(int kernel, const void* args, void* stream) {
 
 // The groups of a curve as the fused kernels run them: G1 with its products
 // inlined up to 12 words, G2 over Fp2 as curve.cuh's G2M (the Fp2 product a
-// call at 12 words); and both with every product a call (GS above).
+// call at 12 words); and both with every product a call (GS above). G2 over
+// Fp4 calls its products in every kernel (curve.cuh's mul4_called).
 template <class C>
 using G1M = G1F<C>;
 template <class C>
 using G1S = G1F<C, true>;
 template <class C>
 using G2S = G2F<C, true>;
+template <class C>
+using G4M = G4F<C>;
+template <class C>
+using G4S = G4F<C>;
 
 }  // namespace ts
 

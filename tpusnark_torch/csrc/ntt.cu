@@ -1,7 +1,8 @@
 // NTT butterflies over a scalar field, on flat (N, lanes) operands and
 // (N, lanes) twiddle rows (the caller tiles each stage's twiddles).
-// Instantiated for the scalar fields: BN254 fr and BLS12-377 fr (8 words),
-// BLS12-381 fr (9 words) and BW6-761 fr (12 words).
+// Instantiated for the scalar fields: BN254 fr, BLS12-377 fr and BLS24-315
+// fr (8 words), BLS12-381 fr and BLS24-317 fr (9 words), BW6-633 fr (10
+// words) and BW6-761 fr (12 words).
 //
 // Replaces the TPU kernels
 //   B3  tpusnark/poly/ntt.py NTT._butterfly   (e + o*w, e - o*w)
@@ -90,6 +91,9 @@ TS_EXPORT int ts_ntt_butterfly(int field, const void* e, const void* o, const vo
     case BLS12_381_FR: return launch_butterfly<BLS12_381_FR>(e, o, w, out_a, out_b, n, st);
     case BLS12_377_FR: return launch_butterfly<BLS12_377_FR>(e, o, w, out_a, out_b, n, st);
     case BW6_761_FR: return launch_butterfly<BW6_761_FR>(e, o, w, out_a, out_b, n, st);
+    case BLS24_315_FR: return launch_butterfly<BLS24_315_FR>(e, o, w, out_a, out_b, n, st);
+    case BLS24_317_FR: return launch_butterfly<BLS24_317_FR>(e, o, w, out_a, out_b, n, st);
+    case BW6_633_FR: return launch_butterfly<BW6_633_FR>(e, o, w, out_a, out_b, n, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -104,6 +108,9 @@ TS_EXPORT int ts_ntt_butterfly4(int field, const void* ptrs_host, long n, void* 
     case BLS12_381_FR: return launch_butterfly4<BLS12_381_FR>(p, n, st);
     case BLS12_377_FR: return launch_butterfly4<BLS12_377_FR>(p, n, st);
     case BW6_761_FR: return launch_butterfly4<BW6_761_FR>(p, n, st);
+    case BLS24_315_FR: return launch_butterfly4<BLS24_315_FR>(p, n, st);
+    case BLS24_317_FR: return launch_butterfly4<BLS24_317_FR>(p, n, st);
+    case BW6_633_FR: return launch_butterfly4<BW6_633_FR>(p, n, st);
   }
   return (int)cudaErrorInvalidValue;
 }

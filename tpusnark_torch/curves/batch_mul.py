@@ -17,6 +17,7 @@ import torch
 from ..fields.tfield import Field
 from ..msm.pippenger import tree_map
 from .config import get_curve
+from .encoding import g2_to_device, g4_to_device
 from .tcurve import CurveOps
 
 
@@ -69,18 +70,14 @@ def g1_generator_ladder(fp: Field, n_bits: int, curve: str, device="cpu"):
 
 
 def g2_generator_ladder(fp: Field, n_bits: int, curve: str, device="cpu"):
+    """(X, Y) with trailing axis n_bits, each coordinate as the curve's G2
+    ops hold it: one tensor (G2 over Fp, the BW6 curves), (c0, c1) over Fp2,
+    ((c00, c01), (c10, c11)) over Fp4 (the BLS24 curves)."""
     pts = _ladder_host("g2", n_bits, curve)
-    if isinstance(pts[0][0], int):  # G2 over Fp (BW6-761): the G1 layout
+    if isinstance(pts[0][0], int):  # G2 over Fp: the G1 layout
         return (
             fp.encode([pt[0] for pt in pts], device=device),
             fp.encode([pt[1] for pt in pts], device=device),
         )
-    X = (
-        fp.encode([pt[0].c0 for pt in pts], device=device),
-        fp.encode([pt[0].c1 for pt in pts], device=device),
-    )
-    Y = (
-        fp.encode([pt[1].c0 for pt in pts], device=device),
-        fp.encode([pt[1].c1 for pt in pts], device=device),
-    )
+    X, Y, _ = (g4_to_device if get_curve(curve).g2_fp4 else g2_to_device)(pts, fp, device)
     return (X, Y)

@@ -5,9 +5,8 @@ parametrized implementation closes over a CurveConfig).
 
 A config bundles the field specs, the short-Weierstrass constants the device
 kernels need, and the host (python-int) curve module used for setup ladders,
-proof assembly, and pairings. The three curves the port cannot prove yet
-(BLS24-315, BLS24-317, BW6-633) keep their specs and constants, as literals
-equal to tpusnark's, and raise NotImplementedError in ``.host``.
+proof assembly, and pairings. The constants are literals equal to
+tpusnark's.
 """
 
 from __future__ import annotations
@@ -32,10 +31,6 @@ from ..fields.spec import (
     BW6_761_FR,
     FieldSpec,
 )
-
-# curves whose host module (and kernels) the port does not have yet
-_NO_HOST = ("bls24-315", "bls24-317", "bw6-633")
-
 
 @dataclass(frozen=True)
 class CurveConfig:
@@ -75,8 +70,18 @@ class CurveConfig:
             from . import bw6761
 
             return bw6761
-        if self.name in _NO_HOST:
-            raise NotImplementedError(f"curve {self.name}: its host module is not ported")
+        if self.name == "bls24-315":
+            from . import bls24315
+
+            return bls24315
+        if self.name == "bls24-317":
+            from . import bls24317
+
+            return bls24317
+        if self.name == "bw6-633":
+            from . import bw6633
+
+            return bw6633
         raise ValueError(f"unknown curve {self.name}")
 
 

@@ -1,9 +1,11 @@
 """Batched elliptic-curve arithmetic on torch tensors (G1 over Fp; G2 over
-Fp2 = Fp[u]/(u^2 + q), or over Fp itself for BW6-761).
+Fp2 = Fp[u]/(u^2 + q), over Fp4 = Fp2[v]/(v^2 - Z2) for the BLS24 curves, or
+over Fp itself for the BW6 curves).
 
 Counterpart of ``tpusnark/curves/jcurve.py``: Renes-Costello-Batina complete
 projective formulas for a = 0, identity (0 : 1 : 0). Coordinates are field
-elements ``(words, *batch)`` (G2: ``(c0, c1)`` tuples of them); points are
+elements ``(words, *batch)`` (G2: ``(c0, c1)`` tuples of them, over Fp4
+``((c00, c01), (c10, c11))``); points are
 ``(X, Y, Z)`` tuples and affine points ``(X, Y, inf)`` with ``inf`` a bool
 ``(*batch,)`` mask.
 
@@ -29,6 +31,8 @@ from .config import get_curve
 
 class FpArith:
     """Adapter giving CurveOps a uniform field interface over Fp."""
+
+    degree = 1  # base-field components of an element
 
     def __init__(self, field: Field, b: int):
         self.f = field
@@ -113,10 +117,25 @@ def small_mul(f: Field, x, k: int):
     return acc
 
 
+def _componentwise(fa, op, pairs):
+    """k componentwise ops over a tower (Fp2, Fp4) as one Fp op on a stack of
+    all their components: one launch, or one pass of the plain version,
+    where the tower would take degree * k."""
+    d = fa.degree
+    As = [c for a, _ in pairs for c in fa.components(a)]
+    Bs = [c for _, b in pairs for c in fa.components(b)]
+    flat = torch.broadcast_tensors(*As, *Bs)
+    out = op(torch.stack(flat[: len(As)], dim=1), torch.stack(flat[len(As) :], dim=1))
+    return [fa.from_components([out[:, d * i + j] for j in range(d)]) for i in range(len(pairs))]
+
+
 class Fp2Arith:
     """Fp2 = Fp[u]/(u^2 + q); elements are (c0, c1) tuples of Fp tensors.
 
-    q = 1 for BN254 and BLS12-381 (u^2 = -1), 5 for BLS12-377."""
+    q = 1 for BN254, BLS12-381 and BLS24-317 (u^2 = -1), 5 for BLS12-377, 13
+    for BLS24-315."""
+
+    degree = 2
 
     def __init__(self, field: Field, b3_fp2: tuple[int, int], q: int):
         if not 1 <= q <= 16:
@@ -126,10 +145,10 @@ class Fp2Arith:
         self.q = q
 
     def add(self, a, b):
-        return (self.f.add(a[0], b[0]), self.f.add(a[1], b[1]))
+        return self.add_many([(a, b)])[0]
 
     def sub(self, a, b):
-        return (self.f.sub(a[0], b[0]), self.f.sub(a[1], b[1]))
+        return self.sub_many([(a, b)])[0]
 
     def neg(self, a):
         return (self.f.neg(a[0]), self.f.neg(a[1]))
@@ -164,10 +183,10 @@ class Fp2Arith:
         return [(c0[:, i], c1[:, i]) for i in range(k)]
 
     def add_many(self, pairs):
-        return [self.add(a, b) for a, b in pairs]
+        return _componentwise(self, self.f.add, pairs)
 
     def sub_many(self, pairs):
-        return [self.sub(a, b) for a, b in pairs]
+        return _componentwise(self, self.f.sub, pairs)
 
     def b3_const(self, device):
         f = self.f
@@ -203,6 +222,116 @@ class Fp2Arith:
 
     def from_components(self, cs):
         return (cs[0], cs[1])
+
+
+class Fp4Arith:
+    """Fp4 = Fp2[v]/(v^2 - Z2) over Fp2 = Fp[u]/(u^2 - a2); elements are
+    (c0, c1) tuples of Fp2 elements: ((c00, c01), (c10, c11)). The G2
+    coordinate field of the BLS24 curves (tpusnark's jcurve.Fp4Arith):
+    a2 = -13, Z2 = u for BLS24-315; a2 = -1, Z2 = 1 + u for BLS24-317. The
+    product is Karatsuba over Fp2.mul_many, so one Fp4 product is three Fp2
+    products is nine Fp products, and Z2 * x is an add chain."""
+
+    degree = 4
+
+    def __init__(self, field: Field, b3_fp4: tuple, a2: int, z2: tuple[int, int]):
+        if a2 >= 0:
+            raise ValueError("u^2 = a2 with a2 < 0 expected")
+        self.f2 = Fp2Arith(field, (0, 0), q=-a2)
+        self.f = field
+        self.z2 = tuple(z2)
+        self._b3 = b3_fp4  # ((c00, c01), (c10, c11)) python ints, normal form
+
+    def _mul_z2(self, x):
+        """x * Z2 over Fp2 for the small constant Z2 = z0 + z1 u, in the order
+        of jcurve.Fp4Arith._mul_z2: (c0 + c1 u)(z0 + z1 u) = (z0 c0 - q z1 c1)
+        + (z0 c1 + z1 c0) u."""
+        f, (z0, z1), q = self.f, self.z2, self.f2.q
+        c0, c1 = x
+        r0s, r1s = [], []
+        if z0:
+            r0s.append(small_mul(f, c0, z0))
+            r1s.append(small_mul(f, c1, z0))
+        if z1:
+            r0s.append(f.neg(small_mul(f, c1, q * z1)))
+            r1s.append(small_mul(f, c0, z1))
+        r0 = r0s[0] if len(r0s) == 1 else f.add(*r0s)
+        r1 = r1s[0] if len(r1s) == 1 else f.add(*r1s)
+        return (r0, r1)
+
+    def add(self, a, b):
+        return self.add_many([(a, b)])[0]
+
+    def sub(self, a, b):
+        return self.sub_many([(a, b)])[0]
+
+    def neg(self, a):
+        return (self.f2.neg(a[0]), self.f2.neg(a[1]))
+
+    def mul(self, a, b):
+        return self.mul_many([(a, b)])[0]
+
+    def stack(self, xs):
+        return (self.f2.stack([x[0] for x in xs]), self.f2.stack([x[1] for x in xs]))
+
+    def unstack(self, x, k: int):
+        return list(zip(self.f2.unstack(x[0], k), self.f2.unstack(x[1], k)))
+
+    def mul_many(self, pairs):
+        """Karatsuba, stacked: k Fp4 products as one Fp2.mul_many of 3k."""
+        f2 = self.f2
+        k = len(pairs)
+        a0, a1 = self.stack([a for a, _ in pairs])
+        b0, b1 = self.stack([b for _, b in pairs])
+        asum, bsum = f2.add_many([(a0, a1), (b0, b1)])
+        t0, t1, t2 = f2.mul_many([(a0, b0), (a1, b1), (asum, bsum)])
+        c0 = f2.add(t0, self._mul_z2(t1))
+        c1 = f2.sub(t2, f2.add(t0, t1))
+        return self.unstack((c0, c1), k)
+
+    def add_many(self, pairs):
+        return _componentwise(self, self.f.add, pairs)
+
+    def sub_many(self, pairs):
+        return _componentwise(self, self.f.sub, pairs)
+
+    def b3_const(self, device):
+        """3b' in Montgomery form: (c00, c01, c10, c11) constants."""
+        f = self.f
+        return tuple(f.const(c, mont=True, device=device) for pair in self._b3 for c in pair)
+
+    def mul_b3(self, x):
+        return self.mul_b3_many([x])[0]
+
+    def mul_b3_many(self, xs):
+        f = self.f
+        c00, c01, c10, c11 = self.b3_const(xs[0][0][0].device)
+        consts = [
+            (
+                (f.broadcast_const(c00, x[0][0]), f.broadcast_const(c01, x[0][0])),
+                (f.broadcast_const(c10, x[0][0]), f.broadcast_const(c11, x[0][0])),
+            )
+            for x in xs
+        ]
+        return self.mul_many(list(zip(xs, consts)))
+
+    def select(self, cond, a, b):
+        return (self.f2.select(cond, a[0], b[0]), self.f2.select(cond, a[1], b[1]))
+
+    def zero_like(self, x):
+        return (self.f2.zero_like(x[0]), self.f2.zero_like(x[1]))
+
+    def one_like(self, x):
+        return (self.f2.one_like(x[0]), self.f2.zero_like(x[1]))
+
+    def is_zero(self, x):
+        return self.f2.is_zero(x[0]) & self.f2.is_zero(x[1])
+
+    def components(self, x):
+        return [x[0][0], x[0][1], x[1][0], x[1][1]]
+
+    def from_components(self, cs):
+        return ((cs[0], cs[1]), (cs[2], cs[3]))
 
 
 class CurveOps:
@@ -293,34 +422,39 @@ class KernelCurveOps(CurveOps):
     Operands are broadcast to one batch shape and flattened to (words, N)
     around the kernel, as FusedCurveOps flattens around tpusnark's kernel.
     `group` ("g1" or "g2") names the kernel instances that are launched and
-    counted; where G2 lies over Fp (BW6-761) it runs the Fp formulas with
-    its own 3b. The kernels of a curve build in its G1 add chain (3b = 9)
-    and its Fp2 q, so ops over a base field with kernels must carry that
-    curve's constants; 3b itself goes to the kernel in Montgomery form."""
+    counted; where G2 lies over Fp (the BW6 curves) it runs the Fp formulas
+    with its own 3b. The kernels of a curve build in its G1 add chain (3b =
+    9), its Fp2 q and its Fp4 a2 and Z2, so ops over a base field with
+    kernels must carry that curve's constants; 3b itself goes to the kernel
+    in Montgomery form."""
 
     def __init__(self, fa, group: str):
         super().__init__(fa)
         if group not in ("g1", "g2"):
             raise ValueError(f"unknown group {group}")
         self.group = group
-        self.fp2 = isinstance(fa, Fp2Arith)
+        self.degree = fa.degree  # base-field components of a coordinate
+        self.fp2, self.fp4 = self.degree == 2, self.degree == 4
         curve = kernels.curve_of(fa.f.spec)
         if curve is not None:
             cfg = get_curve(curve)
-            if self.fp2 != (group == "g2" and not cfg.g2_over_fp):
+            if self.degree != (kernels.g2_degree(curve) if group == "g2" else 1):
                 raise ValueError(f"the {curve} {group} kernels are not over {type(fa).__name__}")
             if self.fp2 and fa.q != cfg.fp2_q:
                 raise ValueError(f"the {curve} G2 kernels are built for q = {cfg.fp2_q}")
+            if self.fp4 and (-fa.f2.q, fa.z2) != (cfg.fp4_a2, cfg.fp4_z2):
+                raise ValueError(f"the {curve} G2 kernels are built for a2 = {cfg.fp4_a2}, Z2 = {cfg.fp4_z2}")
             if group == "g1" and (fa.b3 == 9) != (3 * cfg.g1_b == 9):
                 raise ValueError(f"the {curve} G1 kernels are built for 3b = {3 * cfg.g1_b}")
         self._b3_words = None
         self._fused = None
 
     def _b3(self):
-        """The uint32 words of 3b (G1) or 3b' (G2: c0 then c1), Montgomery."""
+        """The uint32 words of 3b (G1) or 3b' (G2: its components in order),
+        Montgomery."""
         if self._b3_words is None:
             fa = self.fa
-            consts = fa.b3_const("cpu") if self.fp2 else (fa.f.const(fa.b3, mont=True),)
+            consts = fa.b3_const("cpu") if self.degree > 1 else (fa.f.const(fa.b3, mont=True),)
             words = torch.cat(consts).numpy().view("uint32")
             self._b3_words = [int(w) for w in words]
         return self._b3_words
@@ -351,7 +485,7 @@ class KernelCurveOps(CurveOps):
         if self._fused is None:
             f = self.fa.f
             one = f.one("cpu")
-            ones = (one, torch.zeros_like(one)) if self.fp2 else (one,)
+            ones = (one,) + (torch.zeros_like(one),) * (self.degree - 1)
             one_words = [int(w) for w in torch.cat(ones).numpy().view("uint32")]
             self._fused = kernels.MsmKernels(f.spec, self.group == "g2", self._b3(), one_words)
         return self._fused
@@ -408,7 +542,7 @@ class KernelCurveOps(CurveOps):
 
 def g1_ops(field_fp: Field, b: int, group: str = "g1") -> KernelCurveOps:
     """y^2 = x^3 + b over field_fp: G1, or with group = "g2" a G2 that lies
-    over Fp itself (BW6-761's sextic twist)."""
+    over Fp itself (the BW6 curves' sextic twists)."""
     return KernelCurveOps(FpArith(field_fp, b=b), group)
 
 
@@ -417,13 +551,19 @@ def g2_ops(field_fp: Field, b3: tuple[int, int], q: int) -> KernelCurveOps:
     return KernelCurveOps(Fp2Arith(field_fp, tuple(b3), q), "g2")
 
 
+def g2_ops_fp4(field_fp: Field, b3_fp4: tuple, a2: int, z2: tuple[int, int]) -> KernelCurveOps:
+    """G2 over Fp4 = Fp2[v]/(v^2 - z2), Fp2 = Fp[u]/(u^2 - a2), with 3b' =
+    b3_fp4 = ((c00, c01), (c10, c11))."""
+    return KernelCurveOps(Fp4Arith(field_fp, b3_fp4, a2, z2), "g2")
+
+
 def curve_ops(name: str) -> tuple[KernelCurveOps, KernelCurveOps]:
-    """(G1, G2) ops of a curve with G2 over Fp2 or over Fp, from its
+    """(G1, G2) ops of a curve, G2 over Fp2, Fp4 or Fp, from its
     CurveConfig."""
     cfg = get_curve(name)
-    if cfg.g2_fp4:
-        raise NotImplementedError(f"curve {name}: G2 over Fp4 is not ported yet")
     fp = get_field(cfg.fp_spec)
+    if cfg.g2_fp4:
+        return g1_ops(fp, cfg.g1_b), g2_ops_fp4(fp, cfg.g2_b3_fp4, cfg.fp4_a2, cfg.fp4_z2)
     if cfg.g2_over_fp:
         return g1_ops(fp, cfg.g1_b), g1_ops(fp, cfg.g2_b, group="g2")
     return g1_ops(fp, cfg.g1_b), g2_ops(fp, cfg.g2_b3, cfg.fp2_q)

@@ -20,7 +20,7 @@ in this module. torch on the CPU has no uint32 add, shift or compare, and
 ``>>`` on int32 sign-extends, so the plain versions widen the words to int64.
 Like jfield.py they work on whole columns: limb products are 16x16-bit outer
 products summed along antidiagonals (``_product_cols``), and carries are
-resolved for all words at once (``_normalize``, through ``_lex_prefix``)
+resolved for all words at once (``_normalize``, through ``_carries``)
 instead of word by word. They
 compute the same lazy representatives as the kernels, word for word.
 """
@@ -120,32 +120,34 @@ def _bcast(c: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return c.to(like.device).view((c.shape[0],) + (1,) * (like.dim() - 1))
 
 
-def _lex_prefix(t: torch.Tensor) -> torch.Tensor:
-    """For every word k, the sign of the most significant nonzero t_j with
-    j < k (0 if none), for all k at once. Returns (m + 1, *b): row m is over
-    all j.
+def _carries(gen: torch.Tensor, prop: torch.Tensor) -> torch.Tensor:
+    """The carry (or borrow) into every row of a multiword sum, for all rows
+    at once: row k generates one (gen) or passes on the one it receives
+    (prop, disjoint from gen). Returns (m + 1, *b) int64 0/1: row m is the
+    carry out of the top row.
 
-    A log-step scan: at step d every row that is still 0 takes the value d
-    rows below it, so after ceil(log2 m) steps each row holds the sign of the
-    highest nonzero row at or below it. Sound at any row count (a 24-word
-    product has 48 word rows)."""
-    m = t.shape[0]
-    s = torch.sign(t)
-    d = 1
-    while d < m:
-        below = torch.cat([torch.zeros_like(s[:d]), s[:-d]], dim=0)
-        s = torch.where(s != 0, s, below)
-        d *= 2
-    return torch.cat([torch.zeros_like(s[:1]), s], dim=0)
+    Each lane's m <= 62 flags are packed into the bits of one int64, where
+    one binary addition runs the whole chain: with A = G | P and B = G (so
+    A & B = G and A ^ B = P), the carries of A + B are (A + B) ^ A ^ B."""
+    m = gen.shape[0]
+    if m > 62:
+        raise ValueError(f"{m} rows: a carry chain packs at most 62 into an int64")
+    shape = (m,) + (1,) * (gen.dim() - 1)
+    weight = torch.ones((), dtype=_I64, device=gen.device) << torch.arange(m, device=gen.device).view(shape)
+    G = (gen.to(_I64) * weight).sum(dim=0)
+    P = (prop.to(_I64) * weight).sum(dim=0)
+    X = ((G | P) + G) ^ P
+    rows = torch.arange(m + 1, device=gen.device).view((m + 1,) + shape[1:])
+    return (X.unsqueeze(0) >> rows) & 1
 
 
 def _normalize(cols: torch.Tensor):
     """Non-negative int64 columns of weight 2^(32k), each < 2^62 -> (exact
     32-bit words, carry out of the top word)."""
     lo, hi = cols & M32, cols >> 32
-    c = torch.cat([lo[:1], lo[1:] + hi[:-1]], dim=0)  # < 2^33: carries are 0/1
+    c = torch.cat([lo[:1], lo[1:] + hi[:-1]], dim=0)  # < 2^32 + 2^30: carries are 0/1
     # word k carries out iff c_k >= 2^32, or c_k == 2^32 - 1 and a carry comes in
-    cin = (_lex_prefix(c - M32) > 0).to(_I64)
+    cin = _carries(c > M32, c == M32)
     s = c + cin[:-1]
     return s & M32, hi[-1] + (s[-1] >> 32)
 
@@ -153,8 +155,9 @@ def _normalize(cols: torch.Tensor):
 def _sub_words(x: torch.Tensor, y: torch.Tensor):
     """Multiword x - y over words < 2^32: (words mod 2^(32m), borrow bool)."""
     d = x - y
-    pre = _lex_prefix(d)  # borrow into word k iff x < y on the words below k
-    return (d - (pre[:-1] < 0).to(_I64)) & M32, pre[-1] < 0
+    # word k borrows out iff x_k < y_k, or x_k == y_k and a borrow comes in
+    b = _carries(d < 0, d == 0)
+    return (d - b[:-1]) & M32, b[-1] == 1
 
 
 def _product_cols(x16: torch.Tensor, y16: torch.Tensor) -> torch.Tensor:
@@ -162,12 +165,45 @@ def _product_cols(x16: torch.Tensor, y16: torch.Tensor) -> torch.Tensor:
     2^(32k) of the 64m-bit product: antidiagonal sums of the outer product,
     paired into 32-bit columns. With 2m limbs an antidiagonal sums at most
     2m products < 2^32, so at 24 words (48 limbs) each is < 48 * 2^32 < 2^38
-    and a paired column < 2^55, inside _normalize's 2^62."""
+    and a paired column < 2^55, inside _normalize's 2^62.
+
+    Past a few hundred lanes the sums run as 2m shifted multiply-adds in
+    float64 (exact: every partial sum is an integer below 2^53), several
+    times faster there than the scatter of the outer product."""
     n = x16.shape[0]
-    outer = x16[:, None] * y16[None]
-    idx = _antidiag_index(n, str(x16.device))
-    cols = torch.zeros((2 * n,) + tuple(outer.shape[2:]), dtype=_I64, device=x16.device)
-    cols.index_add_(0, idx, outer.reshape((n * n,) + tuple(outer.shape[2:])))
+    x16, y16 = torch.broadcast_tensors(x16, y16)
+    if x16[0].numel() >= _SHIFTED_LANES:
+        x, y = x16.to(torch.float64), y16.to(torch.float64)
+        cols = torch.zeros((2 * n,) + tuple(x.shape[1:]), dtype=torch.float64, device=x.device)
+        for i in range(n):
+            cols[i : i + n].addcmul_(y, x[i : i + 1].expand_as(y))
+        cols = cols.to(_I64)
+    else:
+        outer = x16[:, None] * y16[None]
+        idx = _antidiag_index(n, str(x16.device))
+        cols = torch.zeros((2 * n,) + tuple(outer.shape[2:]), dtype=_I64, device=x16.device)
+        cols.index_add_(0, idx, outer.reshape((n * n,) + tuple(outer.shape[2:])))
+    return cols[0::2] + (cols[1::2] << 16)
+
+
+_SHIFTED_LANES = 512
+
+
+def _toeplitz(c16: torch.Tensor) -> torch.Tensor:
+    """(2n, n) float64 matrix T of a constant's n 16-bit limbs with T[k, i] =
+    c[k - i]: T @ x16 is the limb columns of c * x."""
+    n = c16.shape[0]
+    k = torch.arange(2 * n)[:, None] - torch.arange(n)[None]
+    return torch.where((k >= 0) & (k < n), c16[k.clamp(0, n - 1)], 0).to(torch.float64)
+
+
+def _const_cols(x16: torch.Tensor, toeplitz: torch.Tensor) -> torch.Tensor:
+    """_product_cols of x16 (2m, *b) and a constant, as one float64 matrix
+    product with the constant's Toeplitz matrix (exact, as above); the rows
+    of `toeplitz` may be cut to the low columns that are wanted."""
+    n, batch = x16.shape[0], tuple(x16.shape[1:])
+    t = toeplitz.to(x16.device)
+    cols = (t @ x16.reshape(n, -1).to(torch.float64)).to(_I64).reshape((t.shape[0],) + batch)
     return cols[0::2] + (cols[1::2] << 16)
 
 
@@ -212,8 +248,11 @@ class Field:
         self.r2 = self.r * self.r % p
         self._p = _int_words(p, m)
         self._2p = _int_words(2 * p, m)
-        self._p16 = _split16(self._p)
-        self._pp16 = _split16(_int_words(-pow(p, -1, 1 << (32 * m)) % (1 << (32 * m)), m))
+        # REDC's two products by constants: by p, and by -p^-1 mod R, of
+        # which only the low m words (2m limb columns) are wanted
+        self._p_toeplitz = _toeplitz(_split16(self._p))
+        pp = _split16(_int_words(-pow(p, -1, 1 << (32 * m)) % (1 << (32 * m)), m))
+        self._pp_low = _toeplitz(pp)[: 2 * m]
         self._consts: dict = {}
 
     # ------------------------------------------------------------ encoding
@@ -308,9 +347,8 @@ class Field:
         """(2m, *b) words of T < R*p -> (m, *b) words of (T + m*p)/R with
         m = -T/p mod R: full-word Montgomery, as jfield.py's _mul_impl."""
         w = self.n
-        m_cols = _product_cols(_split16(t[:w]), _bcast(self._pp16, t))[:w]
-        m, _ = _normalize(m_cols)  # mod R
-        s, _ = _normalize(t + _product_cols(_split16(m), _bcast(self._p16, t)))
+        m, _ = _normalize(_const_cols(_split16(t[:w]), self._pp_low))  # mod R
+        s, _ = _normalize(t + _const_cols(_split16(m), self._p_toeplitz))
         return s[w:]  # the low half is zero mod R; result < 2p
 
     def mul_plain(self, a, b):

@@ -11,8 +11,9 @@ module imports on a machine without ``nvcc`` or a card.
 
 Every wrapper takes CUDA tensors only: int32 ``(words, N)`` limb-major words
 that hold uint32 bit patterns, contiguous, with the word count of the field
-(8 for BN254 and BLS12-377 fr, 9 for BLS12-381 fr, 12 for BLS12-381 fp,
-BLS12-377 fp and BW6-761 fr, 24 for BW6-761 fp). It checks them, and
+(8 for BN254, BLS12-377 and BLS24-315 fr, 9 for BLS12-381 and BLS24-317 fr,
+10 for BLS24-315 fp, BLS24-317 fp and BW6-633 fr, 12 for BLS12-381 fp,
+BLS12-377 fp and BW6-761 fr, 20 for BW6-633 fp, 24 for BW6-761 fp). It checks them, and
 refuses a field or curve without kernels before anything is built; it
 allocates its outputs with ``torch.empty``, launches on the current stream,
 raises if the launch failed, and adds one to ``LAUNCHES[name]``. Instance
@@ -45,6 +46,9 @@ SOURCES = (
     "curve_bls12_381.cu",
     "curve_bls12_377.cu",
     "curve_bw6_761.cu",
+    "curve_bw6_633.cu",
+    "curve_bls24_315.cu",
+    "curve_bls24_317.cu",
     "msm_bn254_g1.cu",
     "msm_bn254_g2.cu",
     "msm_bls12_381_g1.cu",
@@ -52,6 +56,11 @@ SOURCES = (
     "msm_bls12_377_g1.cu",
     "msm_bls12_377_g2.cu",
     "msm_bw6_761.cu",
+    "msm_bw6_633.cu",
+    "msm_bls24_315_g1.cu",
+    "msm_bls24_315_g2.cu",
+    "msm_bls24_317_g1.cu",
+    "msm_bls24_317_g2.cu",
 )
 HEADERS = ("mont.cuh", "curve.cuh", "msm.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -67,6 +76,12 @@ SPECS = {
     "bls12_377_fp": (5, 12),
     "bw6_761_fr": (6, 12),
     "bw6_761_fp": (7, 24),
+    "bls24_315_fr": (8, 8),
+    "bls24_315_fp": (9, 10),
+    "bls24_317_fr": (10, 9),
+    "bls24_317_fp": (11, 10),
+    "bw6_633_fr": (12, 10),
+    "bw6_633_fp": (13, 20),
 }
 # curve name -> (scalar field, base field); its curve kernels are
 # ts_curve_<tag>, tag = the base field's name without "_fp"
@@ -75,10 +90,16 @@ CURVES = {
     "bls12-381": ("bls12_381_fr", "bls12_381_fp"),
     "bls12-377": ("bls12_377_fr", "bls12_377_fp"),
     "bw6-761": ("bw6_761_fr", "bw6_761_fp"),
+    "bw6-633": ("bw6_633_fr", "bw6_633_fp"),
+    "bls24-315": ("bls24_315_fr", "bls24_315_fp"),
+    "bls24-317": ("bls24_317_fr", "bls24_317_fp"),
 }
 # curves whose G2 lies over Fp itself: its kernels are the Fp instances,
 # launched and counted under the g2_* names
-G2_OVER_FP = frozenset({"bw6-761"})
+G2_OVER_FP = frozenset({"bw6-761", "bw6-633"})
+# curves whose G2 lies over Fp4 = Fp2[v]/(v^2 - Z2): four components a
+# coordinate
+G2_OVER_FP4 = frozenset({"bls24-315", "bls24-317"})
 FIELD_OPS = ("mul", "from_mont", "add", "sub")
 BASE_FIELD_OPS = FIELD_OPS + ("neg",)  # no path negates a scalar
 CURVE_OPS = ("g1_add", "g1_add_mixed", "g2_add", "g2_add_mixed")
@@ -89,8 +110,9 @@ MSM_OPS = tuple(f"{g}_{op}" for g in ("g1", "g2") for op in MSM_KERNELS)
 
 def base_field_ops(curve: str) -> tuple[str, ...]:
     """The ops with a kernel over `curve`'s base field. Outside the curve
-    kernels only an Fp2 inversion adds and subtracts base-field elements, so
-    a curve whose G2 lies over Fp has no add and no sub instance."""
+    kernels only an Fp2 inversion (also inside an Fp4 one) adds and
+    subtracts base-field elements, so a curve whose G2 lies over Fp has no
+    add and no sub instance."""
     return ("mul", "from_mont", "neg") if curve in G2_OVER_FP else BASE_FIELD_OPS
 
 
@@ -111,6 +133,12 @@ def instances(curve: str) -> list[str]:
 
 def _tag(fp: str) -> str:
     return fp.removesuffix("_fp")
+
+
+def g2_degree(curve: str) -> int:
+    """Base-field components of a G2 coordinate of `curve`: 1 (over Fp), 2
+    (over Fp2) or 4 (over Fp4)."""
+    return 1 if curve in G2_OVER_FP else 4 if curve in G2_OVER_FP4 else 2
 
 
 # one counter per kernel instance; a wrapper adds one per launch
@@ -353,17 +381,19 @@ def curve_op(op: str, g2: bool, fp_spec, ins, b3_words, inf=None):
     the curve whose base field is `fp_spec`.
 
     ins: the coordinate components of both operands, flattened in order
-    (over Fp: X1 Y1 Z1 X2 Y2 [Z2]; over Fp2: X1.c0 X1.c1 Y1.c0 ...), each
-    (words, N). b3_words: the uint32 words of 3b (over Fp, words) or 3b'
-    (over Fp2, c0 then c1, 2 * words) in Montgomery form. inf: (N,) bool for
-    add_mixed, lanes that return the first operand. Returns the output
-    components (X, Y, Z; over Fp2: X.c0, X.c1, ...). G2 is over Fp2, except
-    for the curves in G2_OVER_FP."""
+    (over Fp: X1 Y1 Z1 X2 Y2 [Z2]; over Fp2: X1.c0 X1.c1 Y1.c0 ...; over Fp4:
+    X1.c0.c0 X1.c0.c1 X1.c1.c0 X1.c1.c1 Y1.c0.c0 ...), each (words, N).
+    b3_words: the uint32 words of 3b (over Fp, words) or 3b' (over Fp2, c0
+    then c1, 2 * words; over Fp4, 4 * words in the components' order) in
+    Montgomery form. inf: (N,) bool for add_mixed, lanes that return the
+    first operand. Returns the output components (X, Y, Z; over Fp2: X.c0,
+    X.c1, ...). G2 is over Fp2, except for the curves in G2_OVER_FP and
+    G2_OVER_FP4."""
     curve = curve_of(fp_spec)
     if curve is None:
         raise ValueError(f"no CUDA curve kernels over {fp_spec.name}")
     words = SPECS[fp_spec.name][1]
-    deg = 2 if g2 and curve not in G2_OVER_FP else 1
+    deg = g2_degree(curve) if g2 else 1
     want = deg * (6 if op == "add" else 5)
     if op not in ("add", "add_mixed"):
         raise ValueError(f"unknown curve op {op}")
@@ -405,12 +435,15 @@ def curve_op(op: str, g2: bool, fp_spec, ins, b3_words, inf=None):
 MAX_WORDS = 24  # csrc/mont.cuh
 
 
+MAX_COMPONENTS = 4  # csrc/curve.cuh: an Fp4 coordinate
+
+
 class _MsmArgs(ctypes.Structure):
     """csrc/msm.cuh's MsmArgs."""
 
     _fields_ = [
-        ("inp", ctypes.c_uint64 * 12),
-        ("out", ctypes.c_uint64 * 6),
+        ("inp", ctypes.c_uint64 * (6 * MAX_COMPONENTS)),
+        ("out", ctypes.c_uint64 * (3 * MAX_COMPONENTS)),
         ("key", ctypes.c_uint64),
         ("order", ctypes.c_uint64),
         ("sign", ctypes.c_uint64),
@@ -444,18 +477,19 @@ class MsmKernels:
     pass (B5 over affine bases, B6 over projective records), the scan step and
     the window Horner (B6). The launch block with 3b and 1 is built once; a
     call fills in pointers and sizes and launches. Points are lists of
-    coordinate components (X, Y[, Z]; over Fp2: X.c0, X.c1, ...), each int32
-    (words, *batch) on the card; shapes are checked and nothing is copied.
+    coordinate components (X, Y[, Z]; over Fp2: X.c0, X.c1, ...; over Fp4:
+    X.c0.c0, X.c0.c1, X.c1.c0, X.c1.c1, ...), each int32 (words, *batch) on
+    the card; shapes are checked and nothing is copied.
 
     b3_words, one_words: the uint32 words of 3b and of 1 in Montgomery form
-    (over Fp2: c0 then c1)."""
+    (over Fp2 and Fp4: the components in that order)."""
 
     def __init__(self, fp_spec, g2: bool, b3_words, one_words):
         curve = curve_of(fp_spec)
         if curve is None:
             raise ValueError(f"no CUDA curve kernels over {fp_spec.name}")
         self.words = SPECS[fp_spec.name][1]
-        self.deg = 2 if g2 and curve not in G2_OVER_FP else 1
+        self.deg = g2_degree(curve) if g2 else 1
         if len(b3_words) != self.deg * self.words or len(one_words) != self.deg * self.words:
             raise ValueError(f"expected {self.deg * self.words} words of 3b and of 1")
         self.group = "g2" if g2 else "g1"

@@ -23,18 +23,19 @@ import torch
 
 from .. import kernels
 from ..fields.spec import FieldSpec
-from ..fields.tfield import _device_kind, _flat, canonical_device, get_field
+from ..fields.tfield import _device_kind, _flat, compute_device, get_field
 from .domain import Domain, bit_reverse_perm
 
 
 class NTT:
-    """NTT bound to (FieldSpec, n, device); twiddle tables live on `device`."""
+    """NTT bound to (FieldSpec, n, device); twiddle tables live on `device`:
+    the card, unless the caller names the CPU."""
 
-    def __init__(self, spec: FieldSpec, n: int, device="cpu"):
+    def __init__(self, spec: FieldSpec, n: int, device="cuda"):
         self.spec = spec
         self.n = n
         self.k = n.bit_length() - 1
-        self.device = canonical_device(device)
+        self.device = device = compute_device(device)
         self.field = f = get_field(spec)
         self.domain = d = Domain(spec, n)
         p = spec.modulus
@@ -178,5 +179,7 @@ def _get_ntt(spec: FieldSpec, n: int, device: str) -> NTT:
     return NTT(spec, n, device)
 
 
-def get_ntt(spec: FieldSpec, n: int, device="cpu") -> NTT:
-    return _get_ntt(spec, n, str(canonical_device(device)))
+def get_ntt(spec: FieldSpec, n: int, device="cuda") -> NTT:
+    """The NTT of (spec, n) on `device` (the card unless the caller names the
+    CPU), cached per device."""
+    return _get_ntt(spec, n, str(compute_device(device)))

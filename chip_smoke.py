@@ -12,15 +12,15 @@ BLS12-381, BN254):
   3. check every kernel instance of the curve against its plain PyTorch
      version (run on a CPU copy of the same seeded inputs) at the prove's
      widths (the pointwise curve kernels over a strip row of its MSMs,
-     windows x strips lanes; their plain versions on the first CHECK_LANES
-     of those lanes, the rest of the work being the same formulas on other
-     lanes): exact equality mod p, with both times and the bound. The MSM's fused kernels (strip pass, scan step, window Horner) run
+     windows x strips lanes; their plain versions on all of them, or for
+     the curves of HEAD_TAIL_CURVES on the first and last CHECK_LANES // 2):
+     exact equality mod p, with both times and the bound. The MSM's fused kernels (strip pass, scan step, window Horner) run
      at the prove's shapes: the strip passes over windows x strips lanes by
      the prove's rows, on keys with long runs, DEAD keys, sign flips and
      repeated points, against the step-by-step loop over the pointwise
      kernels on the card (its CPU run would take minutes: 64 rows of 1-10 s)
      and, at 8 strips a window, against the plain loop on the CPU; a
-     segmented step (its plain version over the first two windows) and a
+     segmented step (its plain version over the first and last windows) and a
      fold scan step and the Horner over the curve's windows against the
      plain versions on the CPU. Equality there is word for word;
   4. MSMs against a host sum from the curve's host module: with c = 16 on
@@ -58,11 +58,11 @@ SEED = 20261016
 # the curves whose verdicts take longest first: they are computed beside the
 # rest
 CURVES = ("bls24-315", "bls24-317", "bw6-761", "bw6-633", "bls12-377", "bls12-381", "bn254")
-# the verifier processes: every core but two, which the main process's plain
-# checks and the card's host work keep
-VERIFY_WORKERS = max(1, (os.cpu_count() or 4) - 2)
 # the pointwise curve kernels are timed over a strip row of the MSMs and held
-# against their plain versions on the first CHECK_LANES lanes of it
+# against their plain versions on every lane of it, but for these curves on
+# its first and last CHECK_LANES // 2 lanes (the launch's first and last
+# blocks), which keeps the plain CPU runs of the wider rows to seconds
+HEAD_TAIL_CURVES = ("bw6-761", "bls12-377", "bls12-381", "bn254")
 CHECK_LANES = 2048
 
 # The card's peaks for the kernels' bounds. Device memory: 3.35 TB/s (NVIDIA's
@@ -323,10 +323,10 @@ def phase_kernels(torch, curve, np_rng, n_wires):
     dev = torch.device("cuda")
     results = {}
 
-    def record(name, field, run_kernel, run_plain, lanes, bound, plain_lanes=None):
+    def record(name, field, run_kernel, run_plain, lanes, bound, sel=None):
         """run_kernel() -> CUDA outputs; run_plain() -> the CPU outputs of
-        the plain version on the same inputs, or on their first plain_lanes
-        lanes (then only those lanes of the kernel's outputs are compared)."""
+        the plain version on the same inputs, or on the lanes `sel` (an index
+        tensor) of them, which are then the kernel's lanes compared."""
         got = run_kernel()
         torch.cuda.synchronize()
         want, plain_ms = _time_host(run_plain)
@@ -334,13 +334,13 @@ def phase_kernels(torch, curve, np_rng, n_wires):
         want = want if isinstance(want, (tuple, list)) else (want,)
         n_bad, err = 0, 0.0
         for g, w in zip(got, want):
-            b, e = _compare(torch, field, g[:, : w.shape[1]], w)
+            b, e = _compare(torch, field, g if sel is None else g[:, sel.to(g.device)], w)
             n_bad += b
             err = max(err, e)
         ms = _time_cuda(torch, run_kernel)
         results[name] = dict(
             lanes=lanes,
-            plain_lanes=plain_lanes or lanes,
+            plain_lanes=lanes if sel is None else len(sel),
             mismatches=n_bad,
             max_abs_err=err,
             ms=ms,
@@ -401,7 +401,7 @@ def phase_kernels(torch, curve, np_rng, n_wires):
     # identities), with identity lanes, P + P lanes and infinity lanes, over
     # one strip row of the prove's MSMs: windows x strips lanes (16 x 2048 for
     # scalars up to 255 bits, 20 x 2048 for BW6-633's 315, 24 x 2048 for
-    # BW6-761's 377); the plain versions run on the first CHECK_LANES
+    # BW6-761's 377)
     p = fp.modulus
     for group, ops in zip(("g1", "g2"), curve_ops(curve)):
         msm = get_msm_for(group, n_wires, curve)
@@ -437,8 +437,11 @@ def phase_kernels(torch, curve, np_rng, n_wires):
         Pg = [x.to(dev) for x in P1]
         Qg = [x.to(dev) for x in Q]
         inf_g = inf_c.to(dev)
-        m = min(nc, CHECK_LANES)
-        P1, Q, inf_c = [x[:, :m] for x in P1], [x[:, :m] for x in Q], inf_c[:m]
+        sel = None
+        if curve in HEAD_TAIL_CURVES:
+            h = CHECK_LANES // 2
+            sel = torch.cat([torch.arange(h), torch.arange(nc - h, nc)])
+            P1, Q, inf_c = [x[:, sel] for x in P1], [x[:, sel] for x in Q], inf_c[sel]
         record(
             f"{group}_add[{curve}]",
             fp,
@@ -446,7 +449,7 @@ def phase_kernels(torch, curve, np_rng, n_wires):
             lambda: flat(plain.add(pt(P1), pt(Q))),
             nc,
             kernel_bound(fp.n, nc, 6 * d, 3 * d, per * (12 + b3_products)),
-            m,
+            sel,
         )
         aff_g = pt(Qg)[:2] + (inf_g,)
         aff_c = pt(Q)[:2] + (inf_c,)
@@ -459,7 +462,7 @@ def phase_kernels(torch, curve, np_rng, n_wires):
             kernel_bound(
                 fp.n, nc, 5 * d, 3 * d, per * (11 + b3_products), extra_bytes=nc, active=nc - int(inf_g.sum())
             ),
-            m,
+            sel,
         )
 
     for name, r in results.items():
@@ -681,10 +684,11 @@ def phase_msm_kernels(torch, curve, np_rng, n_wires, dev):
         del fkeys2, fpts2
         F = min(256, K2)  # the fold of weighted_from_records' 256 lo slots
         fold = tree_map(lambda a: a[..., :F].reshape(a.shape[0], W, 1, F).contiguous(), pts3)
-        # the segmented step's plain version over the first two windows (the
-        # windows are independent rows of the step)
-        pts3_c = tree_map(lambda a: a[:, :2].cpu(), pts3)
-        want_seg, seg_ms = _time_host(lambda: flat(msm._scan_step(pts3_c, -8, K2, skey3[:2].cpu())))
+        # the segmented step's plain version over the first and the last
+        # window (the windows are independent rows of the step)
+        ends = torch.tensor([0, W - 1], device=dev)
+        pts3_c = tree_map(lambda a: a[:, ends].cpu(), pts3)
+        want_seg, seg_ms = _time_host(lambda: flat(msm._scan_step(pts3_c, -8, K2, skey3[ends].cpu())))
         want_fold, fold_ms = _time_host(lambda: flat(msm._scan_step(to(fold, "cpu"), F // 2, F)))
         seg_adds = int((skey3[:, 8:] == skey3[:, :-8]).sum())
         seg_lanes, fold_lanes = W * K2, W * F
@@ -705,7 +709,7 @@ def phase_msm_kernels(torch, curve, np_rng, n_wires, dev):
             bound_of(seg_lanes * (8 + 6 * row), seg_adds * (12 + b3_products) * imads),
             20,
             plain_lanes=2 * K2,
-            cut=lambda outs: [a[:, :2] for a in outs],
+            cut=lambda outs: [a[:, ends] for a in outs],
         )
 
         # --- the window Horner: B6, one result over the curve's windows
@@ -875,10 +879,13 @@ def verdict(curve, name, proof, vk, pubs):
 
 
 def start_workers():
-    """The verifier processes (spawned: the parent holds a CUDA context)."""
+    """The verifier processes (spawned: the parent holds a CUDA context): one
+    a verdict, leaving two cores to the main process's plain checks and the
+    card's host work."""
     global _POOL
     if _POOL is None:
-        _POOL = multiprocessing.get_context("spawn").Pool(VERIFY_WORKERS)
+        verdicts = sum(2 * len(verifier_names(c)) for c in CURVES)
+        _POOL = multiprocessing.get_context("spawn").Pool(max(1, min(verdicts, (os.cpu_count() or 4) - 2)))
     return _POOL
 
 
@@ -990,20 +997,13 @@ def check_launches(curve, setup_only, off_path, setup_launches, launches):
 
 # ---------------------------------------------------------------- main
 def main() -> None:
-    import argparse
-
-    ap = argparse.ArgumentParser(description="Smoke run of tpusnark_torch on one GPU.")
-    ap.add_argument("--curves", default=",".join(CURVES), help="comma-separated subset of the seven curves")
-    curves = ap.parse_args().curves.split(",")
-    if not set(curves) <= set(CURVES):
-        fail(f"unknown curves {sorted(set(curves) - set(CURVES))}; the curves are {', '.join(CURVES)}")
     try:
-        run(curves)
+        run()
     finally:
         stop_workers()  # also when a phase raised
 
 
-def run(curves) -> None:
+def run() -> None:
     t_start = time.perf_counter()
     torch, card = phase_card()
     import numpy as np
@@ -1017,7 +1017,7 @@ def run(curves) -> None:
     dev = torch.device("cuda")
     np_rng = np.random.default_rng(SEED)
     checks, runs, pending = {}, {}, {}
-    for curve in curves:
+    for curve in CURVES:
         t0 = time.perf_counter()
         cs, assign = mul_chain(LOG2_CONSTRAINTS, get_curve(curve).host.R)
         compile_s = time.perf_counter() - t0
@@ -1026,10 +1026,10 @@ def run(curves) -> None:
         setup_launches, launches, pending[curve] = phase_groth16(torch, dev, curve, pool, cs, assign, compile_s)
         runs[curve] = (setup_launches, launches)
         check_launches(curve, setup_only, off_path, setup_launches, launches)
-    missing = sorted({k for c in curves for k in kernels.instances(c)} - set(checks))
+    missing = sorted(set(kernels.LAUNCHES) - set(checks))
     if missing:
         fail(f"kernels not checked: {missing}")
-    for curve in curves:
+    for curve in CURVES:
         collect_verdicts(curve, LOG2_CONSTRAINTS, pending[curve])
     stop_workers()
     for mod in ("jax", "tpusnark"):

@@ -70,11 +70,11 @@ MADE_UP = FieldSpec("made_up_fp", (1 << 89) - 1, 8)
 N = 48
 
 
-def raw_values(p, seed, words):
+def raw_values(p, seed, words, n=N):
     """Representatives in the lazy range [0, 2p): edge cases, then random."""
     rng = np.random.default_rng(seed)
     edge = [0, 1, p - 1, p, p + 1, 2 * p - 1]
-    rand = [int.from_bytes(rng.bytes(4 * words), "little") % (2 * p) for _ in range(N - len(edge))]
+    rand = [int.from_bytes(rng.bytes(4 * words), "little") % (2 * p) for _ in range(n - len(edge))]
     return edge + rand
 
 
@@ -144,6 +144,32 @@ def test_from_mont_matches_tpusnark(name):
     assert max(f.decode(got, mont=False)) < spec.modulus
     assert dec_port(f, got, mont=False) == dec_jax(jf, jf.from_mont(ja), mont=False)
     assert dec_port(f, got, mont=False) == [x * f.r_inv % spec.modulus for x in xs]
+
+
+# one spec of every word count and R
+WIDTHS = ["bn254_fp", "bls12_381_fr", "bls24_315_fp", "bls12_381_fp", "bw6_633_fp", "bw6_761_fp"]
+
+
+@pytest.mark.parametrize("name", WIDTHS)
+def test_mul_and_from_mont_at_1024_lanes_equal_tpusnark_word_for_word(name):
+    """The plain product at the lane counts the card's checks hold the
+    kernels against it (thousands of lanes) gives tpusnark's words, and
+    Python's integers."""
+    spec = SPECS[name]
+    f, jf, p = Field(spec), JField(spec), spec.modulus
+    xs, ys = (raw_values(p, seed, f.n, n=1024) for seed in (9, 10))
+    a, b = to_words(xs, f.n), to_words(ys, f.n)
+    ja, jb = (jnp.asarray(words_to_limbs(t, spec)) for t in (a, b))
+    prod, red = f.mul(a, b), f.from_mont(a)
+    jprod, jred = jf.mul(ja, jb), jf.from_mont(ja)
+    if spec.n_limbs % 2 == 0:  # the same R: the same lazy words
+        assert np.array_equal(words_to_limbs(prod, spec), np.asarray(jprod))
+        assert np.array_equal(words_to_limbs(red, spec), np.asarray(jred))
+    else:
+        assert f.decode(prod) == jf.to_ints(jprod)
+    assert f.decode(red, mont=False) == jf.to_ints(jred, mont=False) == [x * f.r_inv % p for x in xs]
+    assert f.decode(prod) == [x * y * f.r_inv * f.r_inv % p for x, y in zip(xs, ys)]
+    assert max(word_ints(prod)) < 2 * p
 
 
 def word_ints(t):

@@ -118,9 +118,9 @@ def small_mul(f: Field, x, k: int):
 
 
 def _componentwise(fa, op, pairs):
-    """k componentwise ops over a tower (Fp2, Fp4) as one Fp op on a stack of
-    all their components: one launch, or one pass of the plain version,
-    where the tower would take degree * k."""
+    """k componentwise ops over Fp4 as one Fp op on a stack of all their
+    components: one launch, or one pass of the plain version, where the
+    tower would take 4k."""
     d = fa.degree
     As = [c for a, _ in pairs for c in fa.components(a)]
     Bs = [c for _, b in pairs for c in fa.components(b)]
@@ -145,10 +145,10 @@ class Fp2Arith:
         self.q = q
 
     def add(self, a, b):
-        return self.add_many([(a, b)])[0]
+        return (self.f.add(a[0], b[0]), self.f.add(a[1], b[1]))
 
     def sub(self, a, b):
-        return self.sub_many([(a, b)])[0]
+        return (self.f.sub(a[0], b[0]), self.f.sub(a[1], b[1]))
 
     def neg(self, a):
         return (self.f.neg(a[0]), self.f.neg(a[1]))
@@ -183,10 +183,10 @@ class Fp2Arith:
         return [(c0[:, i], c1[:, i]) for i in range(k)]
 
     def add_many(self, pairs):
-        return _componentwise(self, self.f.add, pairs)
+        return [self.add(a, b) for a, b in pairs]
 
     def sub_many(self, pairs):
-        return _componentwise(self, self.f.sub, pairs)
+        return [self.sub(a, b) for a, b in pairs]
 
     def b3_const(self, device):
         f = self.f

@@ -18,8 +18,8 @@ dispatches on the device of its operands: a CUDA tensor goes to the kernel in
 ``csrc/field.cu`` (through ``kernels.py``), a CPU tensor to the plain version
 in this module. torch on the CPU has no uint32 add, shift or compare, and
 ``>>`` on int32 sign-extends, so the plain versions widen the words to int64.
-Like jfield.py they work on whole columns: limb products are 16x16-bit outer
-products summed along antidiagonals (``_product_cols``), and carries are
+Like jfield.py they work on whole columns: limb products are 16x16-bit
+products summed along antidiagonals (``_product_cols``, in float64), and carries are
 resolved for all words at once (``_normalize``, through ``_carries``)
 instead of word by word. They
 compute the same lazy representatives as the kernels, word for word.
@@ -167,26 +167,16 @@ def _product_cols(x16: torch.Tensor, y16: torch.Tensor) -> torch.Tensor:
     2m products < 2^32, so at 24 words (48 limbs) each is < 48 * 2^32 < 2^38
     and a paired column < 2^55, inside _normalize's 2^62.
 
-    Past a few hundred lanes the sums run as 2m shifted multiply-adds in
-    float64 (exact: every partial sum is an integer below 2^53), several
-    times faster there than the scatter of the outer product."""
+    The sums run as 2m shifted multiply-adds in float64, exact since every
+    partial sum is an integer below 2^53."""
     n = x16.shape[0]
     x16, y16 = torch.broadcast_tensors(x16, y16)
-    if x16[0].numel() >= _SHIFTED_LANES:
-        x, y = x16.to(torch.float64), y16.to(torch.float64)
-        cols = torch.zeros((2 * n,) + tuple(x.shape[1:]), dtype=torch.float64, device=x.device)
-        for i in range(n):
-            cols[i : i + n].addcmul_(y, x[i : i + 1].expand_as(y))
-        cols = cols.to(_I64)
-    else:
-        outer = x16[:, None] * y16[None]
-        idx = _antidiag_index(n, str(x16.device))
-        cols = torch.zeros((2 * n,) + tuple(outer.shape[2:]), dtype=_I64, device=x16.device)
-        cols.index_add_(0, idx, outer.reshape((n * n,) + tuple(outer.shape[2:])))
+    x, y = x16.to(torch.float64), y16.to(torch.float64)
+    cols = torch.zeros((2 * n,) + tuple(x.shape[1:]), dtype=torch.float64, device=x.device)
+    for i, xi in enumerate(x.unbind(0)):
+        cols[i : i + n].addcmul_(y, xi)
+    cols = cols.to(_I64)
     return cols[0::2] + (cols[1::2] << 16)
-
-
-_SHIFTED_LANES = 512
 
 
 def _toeplitz(c16: torch.Tensor) -> torch.Tensor:
@@ -205,12 +195,6 @@ def _const_cols(x16: torch.Tensor, toeplitz: torch.Tensor) -> torch.Tensor:
     t = toeplitz.to(x16.device)
     cols = (t @ x16.reshape(n, -1).to(torch.float64)).to(_I64).reshape((t.shape[0],) + batch)
     return cols[0::2] + (cols[1::2] << 16)
-
-
-@functools.lru_cache(maxsize=None)
-def _antidiag_index(n: int, device: str) -> torch.Tensor:
-    i = torch.arange(n)
-    return (i[:, None] + i[None, :]).reshape(-1).to(device)
 
 
 def _flat(a: torch.Tensor) -> torch.Tensor:

@@ -22,7 +22,11 @@ BLS12-381, BN254):
      and, at 8 strips a window, against the plain loop on the CPU; a
      segmented step (its plain version over the first and last windows) and a
      fold scan step and the Horner over the curve's windows against the
-     plain versions on the CPU. Equality there is word for word;
+     plain versions on the CPU. Equality there is word for word. The NTT
+     over the curve's r at 2^17: its tables built on the card against the
+     host's Python lists, each pass of its plan (``k_ntt_stages``) against
+     the plain pass on the CPU, and ntt, intt, ntt_coset and intt_coset on
+     the card against the CPU NTT, every lane mod p;
   4. MSMs against a host sum from the curve's host module: with c = 16 on
      the strip path, G1 at N = 1024 and G2 at N = 256, and on the log-scan
      path (N = 160, the window size of that N) both groups;
@@ -35,7 +39,14 @@ BLS12-381, BN254):
      collected before the result;
   6. every kernel instance of the prove path was launched by that prove
      (counts zeroed just before ``prove`` and read just after), and every
-     setup-only instance by that curve's setup.
+     setup-only instance by that curve's setup; the NTT's pass kernel exactly
+     7 transforms x the passes of the 2^17 plan, the pointwise butterflies
+     (still checked in phase 3) not at all.
+Then, over BN254 fr:
+  7. the NTT at 2^20 against ``Domain.ntt_ref``, and at 2^22 the round trip
+     and four outputs against a Horner evaluation in Python ints; at both
+     sizes one transform timed through the pass kernel and through the
+     pointwise stage loop the pass kernel replaced.
 Then one JSON line with every kernel instance, the card line, and the result
 line. Any failure exits non-zero before the result line. Imports neither
 JAX nor the JAX package ``tpusnark``: the port stands on its own host layer.
@@ -55,6 +66,8 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 LOG2_CONSTRAINTS = 17
 SEED = 20261016
+# the NTT's large sizes, BN254 fr only (phase 7)
+LARGE_NTT_LOG2 = (20, 22)
 # the curves whose verdicts take longest first: they are computed beside the
 # rest
 CURVES = ("bls24-315", "bls24-317", "bw6-761", "bw6-633", "bls12-377", "bls12-381", "bn254")
@@ -85,6 +98,7 @@ REPLACES = {
     "neg": f"{JFIELD}:292",
     "butterfly": f"{JNTT}:177",
     "butterfly4": f"{JNTT}:200",
+    "ntt_stages": f"{JNTT}:200",
     "g1_add": f"{JCURVE}:466",
     "g2_add": f"{JCURVE}:466",
     "g1_add_mixed": f"{JCURVE}:470",
@@ -93,7 +107,8 @@ REPLACES = {
 # the fused MSM kernels replace the TPU kernel whose group law they run,
 # and absorb the tpusnark loop around it (strip_flush; fold_sum,
 # log_scan_buckets and small_weighted; the Horner scan over the windows)
-ABSORBS = {}
+# the NTT's pass kernel runs B4's step and B3's, and the stage loop
+ABSORBS = {"ntt_stages": f"{JNTT}:177, :130"}
 for _g in ("g1", "g2"):
     REPLACES[f"{_g}_strip_mixed"] = f"{JCURVE}:470"
     ABSORBS[f"{_g}_strip_mixed"] = f"{JPIP}:420"
@@ -107,6 +122,11 @@ SETUP_ONLY_CURVE_OPS = ("g1_add_mixed", "g2_add_mixed")
 # where G2 lies over Fp (no Fp2 or Fp4 inversion): neg[fp] then serves only the
 # MSM's log-scan path (96 < records < 2^15), which phase 4 drives.
 OFF_PATH_OPS = ("neg",)
+# B3 and B4 pointwise, over every scalar field: checked in phase 3, and on no
+# path since the transform runs as passes of the pass kernel
+OFF_PATH_NTT_OPS = ("butterfly", "butterfly4")
+# transforms a prove runs: 3 INTT, 3 coset NTT and 1 coset INTT (compute_h_dev)
+NTTS_PER_PROVE = 7
 # per 2^17 prove: one strip pass over the bases and one Horner per MSM, and
 # at most this many launches of the B6 family (pointwise add, projective
 # strip pass, scan step, Horner) at any window count
@@ -159,9 +179,9 @@ def kernel_table():
             elif op.startswith("g"):
                 src = f"{CSRC}/curve_{kernels._tag(fp)}.cu"
             else:
-                src = f"{CSRC}/{'ntt' if op.startswith('butterfly') else 'field'}.cu"
+                src = f"{CSRC}/{'ntt' if op.startswith(('butterfly', 'ntt')) else 'field'}.cu"
             table[name] = (src, REPLACES[op])
-            if arg == fp and op in OFF_PATH_OPS and curve in kernels.G2_OVER_FP:
+            if (arg == fp and op in OFF_PATH_OPS and curve in kernels.G2_OVER_FP) or op in OFF_PATH_NTT_OPS:
                 off_path.add(name)
             elif (arg == fp and op in SETUP_ONLY_OPS) or op in SETUP_ONLY_CURVE_OPS:
                 setup_only.add(name)
@@ -465,6 +485,7 @@ def phase_kernels(torch, curve, np_rng, n_wires):
             sel,
         )
 
+    results.update(phase_ntt(torch, curve, np_rng, dev))
     for name, r in results.items():
         r["plain_device"] = "cpu"
     results.update(phase_msm_kernels(torch, curve, np_rng, n_wires, dev))
@@ -478,6 +499,125 @@ def phase_kernels(torch, curve, np_rng, n_wires):
     if missing:
         fail(f"kernels not checked: {missing}")
     return results
+
+
+def ntt_pass_bound(words, lanes, s0, m):
+    """(bound_ms, bound_by) of one pass of the NTT over `lanes` lanes: each
+    element read and written once, the pass's columns of the twiddle table
+    (stages s0 .. s0+m-1) read once, m/2 products an element."""
+    cols = (1 << (s0 + m)) - (1 << s0)
+    return bound_of((2 * lanes + cols) * 4 * words, m * (lanes // 2) * mont_imads(words))
+
+
+def ntt_bound(words, n):
+    """(bound_ms, bound_by) of one transform of n: the data read and written
+    once, the whole table read once, log2(n) stages of n/2 products."""
+    k = n.bit_length() - 1
+    return bound_of((3 * n - 1) * 4 * words, k * (n // 2) * mont_imads(words))
+
+
+def host_packed(p, n, w):
+    """The packed twiddle table of the n-th root w in Python ints: stage s at
+    columns [2^s - 1, 2^(s+1) - 1) holds w^(j n / 2^(s+1)), j < 2^s."""
+    out = []
+    for s in range(n.bit_length() - 1):
+        step, v = pow(w, n >> (s + 1), p), 1
+        for _ in range(1 << s):
+            out.append(v)
+            v = v * step % p
+    return out
+
+
+def phase_ntt(torch, curve, np_rng, dev):
+    """The NTT over the curve's r at 2^17: tables, passes and transforms
+    against the host and the plain versions. Returns the pass kernel's row."""
+    from tpusnark_torch.curves.config import get_curve
+    from tpusnark_torch.poly.ntt import NTT, get_ntt
+
+    n = 1 << LOG2_CONSTRAINTS
+    spec = get_curve(curve).fr_spec
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ntt = get_ntt(spec, n, dev)  # the prove's, built here
+    cs, csi = ntt._coset_tables()
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    fr, d = ntt.field, ntt.domain
+    p, words, name = fr.modulus, fr.n, f"ntt_stages[{spec.name}]"
+    host, host_ms = _time_host(
+        lambda: [
+            host_packed(p, n, d.generator),
+            host_packed(p, n, d.generator_inv),
+            d.coset_powers(inv=False),
+            d.coset_powers(inv=True),
+        ]
+    )
+    for what, got, want in zip(("twiddles", "inverse twiddles", "coset powers", "inverse coset powers"),
+                               (ntt._tw_fwd, ntt._tw_inv, cs, csi), host):
+        n_bad, _ = _compare(torch, fr, got, fr.encode(want))
+        if n_bad:
+            fail(f"{curve}: the card's NTT {what} differ from the host's on {n_bad} columns")
+    say(
+        f"[3 ntt] {curve}: tables built on the card in {build_ms:.1f} ms equal the host's Python lists "
+        f"(host {host_ms:.0f} ms, without encoding)"
+    )
+
+    # each pass of the plan on the card against the plain pass on the CPU, on
+    # the same input: the first on a bit-reversed row, each later one on the
+    # plain output of the one before
+    x_c = torch.from_numpy(_lazy_words(np_rng, n, p, words))
+    cur_c, tw_c = x_c.index_select(-1, ntt._bitrev.cpu()), ntt._tw_fwd.cpu()
+    rows = []
+    for s0, m in ntt.plan:
+        cur_g = cur_c.to(dev)
+        got = ntt.ntt_stages(cur_g, ntt._tw_fwd, s0, m)
+        torch.cuda.synchronize()
+        want, plain_ms = _time_host(lambda: ntt.ntt_stages_plain(cur_c, tw_c, s0, m))
+        n_bad, err = _compare(torch, fr, got, want)
+        words_bad = int((got.cpu() != want).any(dim=0).sum())
+        if n_bad or words_bad:
+            fail(f"kernel {name} pass ({s0}, {m}) disagrees with the plain pass on {n_bad} lanes ({words_bad} by words)")
+        ms = _time_cuda(torch, lambda: ntt.ntt_stages(cur_g, ntt._tw_fwd, s0, m))
+        bound = ntt_pass_bound(words, n, s0, m)
+        rows.append((ms, plain_ms, bound, err))
+        say(
+            f"[3 check] {name} pass (s0={s0}, m={m}) lanes={n} mismatches=0 (word for word) kernel={ms:.4f} ms "
+            f"bound={bound[0]:.4f} ms ({bound[1]}) plain(cpu)={plain_ms:.1f} ms"
+        )
+        cur_c = want
+
+    # the four transforms on the card against the CPU NTT, every lane
+    ntt_c = NTT(spec, n, "cpu")
+    x_g = x_c.to(dev)
+    times = []
+    for op in ("ntt", "intt", "ntt_coset", "intt_coset"):
+        got = getattr(ntt, op)(x_g)
+        torch.cuda.synchronize()
+        want, plain_ms = _time_host(lambda: getattr(ntt_c, op)(x_c))
+        n_bad, _ = _compare(torch, fr, got, want)
+        if n_bad:
+            fail(f"{curve}: the card's {op} at 2^{LOG2_CONSTRAINTS} differs from the CPU NTT on {n_bad} lanes")
+        times.append(f"{op}={_time_cuda(torch, lambda: getattr(ntt, op)(x_g)):.4f} ms (cpu {plain_ms:.0f} ms)")
+    tb = ntt_bound(words, n)
+    say(
+        f"[3 ntt] {curve}: 2^{LOG2_CONSTRAINTS} transforms on the card equal the CPU NTT on every lane, "
+        f"{len(ntt.plan)} passes {ntt.plan}: " + " ".join(times) + f" | transform bound {tb[0]:.4f} ms ({tb[1]})"
+    )
+    k = len(rows)
+    by = max(rows, key=lambda r: r[2][0])[2][1]
+    return {
+        name: dict(
+            lanes=n,
+            plain_lanes=n,
+            mismatches=0,
+            max_abs_err=max(r[3] for r in rows),
+            # one launch: the mean over the plan's passes
+            ms=sum(r[0] for r in rows) / k,
+            plain_ms=sum(r[1] for r in rows) / k,
+            bound_ms=sum(r[2][0] for r in rows) / k,
+            bound_by=by,
+        )
+    }
 
 
 def _words_differ(torch, got, want):
@@ -960,6 +1100,9 @@ def check_launches(curve, setup_only, off_path, setup_launches, launches):
     """Every instance of the curve's path ran in its run: the prove path's
     in the prove, the setup-only ones in the setup and not in the prove."""
     from tpusnark_torch import kernels
+    from tpusnark_torch.fields.tfield import n_words
+    from tpusnark_torch.curves.config import get_curve
+    from tpusnark_torch.poly.ntt import max_stages, pass_plan
 
     names = [k for k in kernels.instances(curve) if k not in off_path]
     stray = [k for k in kernels.instances(curve) if k in off_path and launches[k] + setup_launches[k] > 0]
@@ -984,7 +1127,12 @@ def check_launches(curve, setup_only, off_path, setup_launches, launches):
     b6 = sum(launches[f"{g}_{op}[{curve}]"] for g in ("g1", "g2") for op in ("add", "strip", "scan_step", "horner"))
     if b6 > MAX_B6_LAUNCHES:
         fail(f"{curve}: {b6} launches of the B6 family in one prove, more than {MAX_B6_LAUNCHES}")
-    say(f"[6 launches] {curve} prove: B5 family {sum(strips)}, B6 family {b6}")
+    fr_spec = get_curve(curve).fr_spec
+    passes = len(pass_plan(LOG2_CONSTRAINTS, max_stages(n_words(fr_spec))))
+    ntt_launches = launches[f"ntt_stages[{fr_spec.name}]"]
+    if ntt_launches != NTTS_PER_PROVE * passes:
+        fail(f"{curve}: {ntt_launches} NTT pass launches in one prove, not {NTTS_PER_PROVE} x {passes}")
+    say(f"[6 launches] {curve} prove: B5 family {sum(strips)}, B6 family {b6}, NTT passes {ntt_launches}")
     say(f"[6 launches] {curve} prove: " + " ".join(f"{k}={launches[k]}" for k in names if k not in setup_only))
     say(f"[6 launches] {curve} setup: " + " ".join(f"{k}={setup_launches[k]}" for k in names))
     say(f"[6 launches] {curve} setup only (not in the prove): " + " ".join(k for k in names if k in setup_only))
@@ -993,6 +1141,103 @@ def check_launches(curve, setup_only, off_path, setup_launches, launches):
             f"[6 launches] {curve} off the 2^17 path (held against the plain version only): "
             + " ".join(k for k in kernels.instances(curve) if k in off_path)
         )
+
+
+# ---------------------------------------------------------------- phase 7
+def pointwise_stage_loop(torch, ntt, x):
+    """The forward transform as it ran before the pass kernel, kept to time
+    against it: the bit-reverse gather, then the stages in pairs through the
+    pointwise B4 kernel and an odd last one through B3, each launch on flat
+    operands copied out of the row and twiddle rows tiled across the groups,
+    its outputs stacked back into the row."""
+    from tpusnark_torch import kernels
+
+    n, L, k, table = ntt.n, ntt.field.n, ntt.k, ntt._tw_fwd
+    x = x.index_select(-1, ntt._bitrev)
+
+    def flat(a):
+        return a.reshape(L, -1).contiguous()
+
+    def tile(w, groups, half):
+        return w.reshape(L, 1, half).expand(L, groups, half).reshape(L, -1).contiguous()
+
+    s = 0
+    while s + 1 < k:
+        half = 1 << s
+        groups = n // (4 * half)
+        v = x.reshape(L, groups, 4, half)
+        w1, w2 = table[:, half - 1 : 2 * half - 1], table[:, 2 * half - 1 : 4 * half - 1]
+        outs = kernels.butterfly4(
+            ntt.spec,
+            *(flat(v[:, :, i]) for i in range(4)),
+            tile(w1, groups, half),
+            tile(w2[:, :half], groups, half),
+            tile(w2[:, half:], groups, half),
+        )
+        x = torch.stack([o.view(L, groups, half) for o in outs], dim=2).reshape(L, n)
+        s += 2
+    if s < k:
+        half = 1 << s
+        v = x.reshape(L, 1, 2, half)
+        a, b = kernels.butterfly(ntt.spec, flat(v[:, :, 0]), flat(v[:, :, 1]), tile(table[:, half - 1 :], 1, half))
+        x = torch.stack([a.view(L, 1, half), b.view(L, 1, half)], dim=2).reshape(L, n)
+    return x
+
+
+def phase_ntt_large(torch, dev, np_rng):
+    """BN254 fr: the NTT at 2^20 against Domain.ntt_ref, at 2^22 the round
+    trip and four outputs against Python Horner evaluations; at both sizes
+    one transform timed through the pass kernel and through the pointwise
+    stage loop it replaced, beside the transform's bound."""
+    from tpusnark_torch.curves.config import get_curve
+    from tpusnark_torch.poly.ntt import NTT
+
+    spec = get_curve("bn254").fr_spec
+    rng = random.Random(SEED + 7)
+    for log2n in LARGE_NTT_LOG2:
+        n = 1 << log2n
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ntt = NTT(spec, n, dev)
+        torch.cuda.synchronize()
+        build_ms = (time.perf_counter() - t0) * 1e3
+        fr = ntt.field
+        p, words, w = fr.modulus, fr.n, ntt.domain.generator
+        x = torch.from_numpy(_lazy_words(np_rng, n, p, words)).to(dev)
+        y = ntt.ntt(x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        xs = fr.decode(x)
+        if log2n < max(LARGE_NTT_LOG2):
+            n_bad, _ = _compare(torch, fr, y, fr.encode(ntt.domain.ntt_ref(xs)))
+            what = "equals Domain.ntt_ref"
+        else:
+            n_bad, _ = _compare(torch, fr, ntt.intt(y), x.cpu())
+            spots = sorted(rng.randrange(n) for _ in range(4))
+            got = fr.decode(y[:, spots])
+            for pos, v in zip(spots, got):
+                wk, acc = pow(w, pos, p), 0
+                for c in reversed(xs):
+                    acc = (acc * wk + c) % p
+                n_bad += acc != v
+            what = f"round trip and outputs {spots} equal Python Horner evaluations"
+        host_s = time.perf_counter() - t0
+        if n_bad:
+            fail(f"the 2^{log2n} NTT over bn254 fr disagrees with its reference on {n_bad} lanes")
+        old = pointwise_stage_loop(torch, ntt, x)
+        n_bad, _ = _compare(torch, fr, old, y.cpu())
+        if n_bad:
+            fail(f"the pointwise stage loop at 2^{log2n} disagrees with the pass kernel on {n_bad} lanes")
+        new_ms = _time_cuda(torch, lambda: ntt.ntt(x), 10)
+        old_ms = _time_cuda(torch, lambda: pointwise_stage_loop(torch, ntt, x), 5)
+        bound = ntt_bound(words, n)
+        say(
+            f"[7 ntt] bn254 fr 2^{log2n}: {what} (host {host_s:.1f} s); tables built on the card in "
+            f"{build_ms:.1f} ms; one ntt: {len(ntt.plan)} passes {ntt.plan} {new_ms:.4f} ms, the pointwise "
+            f"stage loop {old_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})"
+        )
+        del ntt, x, y, old
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------- main
@@ -1029,6 +1274,7 @@ def run() -> None:
     missing = sorted(set(kernels.LAUNCHES) - set(checks))
     if missing:
         fail(f"kernels not checked: {missing}")
+    phase_ntt_large(torch, dev, np_rng)
     for curve in CURVES:
         collect_verdicts(curve, LOG2_CONSTRAINTS, pending[curve])
     stop_workers()
@@ -1063,7 +1309,7 @@ def run() -> None:
                     **({"absorbs": ABSORBS[op]} if (op := name.split("[")[0]) in ABSORBS else {}),
                 )
             )
-    say(f"[7 done] {time.perf_counter() - t_start:.1f} s in all")
+    say(f"[8 done] {time.perf_counter() - t_start:.1f} s in all")
     say(json.dumps({"kernels": rows}))
     say(card)
     say(

@@ -15,7 +15,8 @@ that hold uint32 bit patterns, contiguous, with the word count of the field
 10 for BLS24-315 fp, BLS24-317 fp and BW6-633 fr, 12 for BLS12-381 fp,
 BLS12-377 fp and BW6-761 fr, 20 for BW6-633 fp, 24 for BW6-761 fp). It checks them, and
 refuses a field or curve without kernels before anything is built; it
-allocates its outputs with ``torch.empty``, launches on the current stream,
+allocates its outputs with ``torch.empty`` (the NTT pass may write into its
+input instead), launches on the current stream,
 raises if the launch failed, and adds one to ``LAUNCHES[name]``. Instance
 names carry the field (``mul[bls12_381_fp]``) or the curve
 (``g2_add_mixed[bls12-381]``, ``g1_strip_mixed[bn254]``). The CPU
@@ -126,7 +127,7 @@ def instances(curve: str) -> list[str]:
     return (
         [f"{op}[{fr}]" for op in FIELD_OPS]
         + [f"{op}[{fp}]" for op in BASE_FIELDS[fp]]
-        + [f"butterfly[{fr}]", f"butterfly4[{fr}]"]
+        + [f"butterfly[{fr}]", f"butterfly4[{fr}]", f"ntt_stages[{fr}]"]
         + [f"{op}[{curve}]" for op in CURVE_OPS + MSM_OPS]
     )
 
@@ -157,6 +158,9 @@ _SIGNATURES = {
     "ts_field_neg": (ctypes.c_int, _P, _P, ctypes.c_long, _P),
     "ts_ntt_butterfly": (ctypes.c_int, _P, _P, _P, _P, _P, ctypes.c_long, _P),
     "ts_ntt_butterfly4": (ctypes.c_int, _P, ctypes.c_long, _P),
+    "ts_ntt_stages": (
+        ctypes.c_int, _P, _P, _P, ctypes.c_long, ctypes.c_long, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P
+    ),
     **{
         f"ts_curve_{_tag(fp)}": (ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, ctypes.c_long, _P)
         for _, fp in CURVES.values()
@@ -368,6 +372,58 @@ def butterfly4(spec, x0, x1, x2, x3, w1, w2a, w2b):
             f"butterfly4[{spec.name}]", lib.ts_ntt_butterfly4, fid, ctypes.addressof(ptrs), n, _stream(x0)
         )
     return outs
+
+
+# Shared memory one block of ts_ntt_stages may hold (csrc/ntt.cu's
+# TS_NTT_STAGE_BYTES): 512 elements at 8 to 12 words, 128 threads. Of 24, 48
+# and 96 KB (scripts/bench_ntt_passes.py, 2^17 to 2^22) it was the fastest or
+# within 1 % of it at every size.
+NTT_BLOCK_BYTES = 24 * 1024
+
+
+def ntt_block_elems(words: int, block_bytes: int = NTT_BLOCK_BYTES) -> int:
+    """Elements a block of the NTT pass kernel holds: the largest power of
+    two whose words fit `block_bytes` (csrc/ntt.cu's stage_elems)."""
+    return 1 << ((block_bytes // (4 * words)).bit_length() - 1)
+
+
+def ntt_stages(spec, x, table, n: int, s0: int, m: int, out=None):
+    """One pass of the NTT: DIT stages s0 .. s0+m-1 over the rows of n lanes
+    of bit-reversed x (words, lanes), twiddles from the packed table
+    (words, n - 1) (stage s at columns [2^s - 1, 2^(s+1) - 1)). Writes `out`
+    (a new tensor, or x itself: the pass may run in place) and returns it."""
+    fid, words = _scalar_spec(spec)
+    lanes = _check(x, words, what="ntt_stages x")
+    k = n.bit_length() - 1
+    if n < 2 or n != 1 << k or lanes % n:
+        raise ValueError(f"ntt_stages: {lanes} lanes are not rows of a power of two n = {n}")
+    elems = ntt_block_elems(words)
+    if not (m >= 1 and s0 >= 0 and s0 + m <= k and 1 << m <= elems):
+        raise ValueError(f"ntt_stages: stages [{s0}, {s0 + m}) of {k}, at most {elems.bit_length() - 1} a pass")
+    _check(table, words, n - 1, "ntt_stages table")
+    if out is None:
+        out = torch.empty_like(x)
+    else:
+        _check(out, words, lanes, "ntt_stages out")
+    if not lanes:
+        return out
+    groups = lanes >> m
+    lg_groups = min((elems >> m).bit_length(), (groups - 1).bit_length() + 1) - 1
+    _launch(
+        f"ntt_stages[{spec.name}]",
+        build().ts_ntt_stages,
+        fid,
+        x.data_ptr(),
+        out.data_ptr(),
+        table.data_ptr(),
+        lanes,
+        n - 1,
+        s0,
+        m,
+        lg_groups,
+        _stream(x),
+    )
+    return out
 
 
 # ------------------------------------------------------------------ curves

@@ -14,7 +14,11 @@ BLS12-381, BN254):
      widths (the pointwise curve kernels over a strip row of its MSMs,
      windows x strips lanes; their plain versions on all of them, or for
      the curves of HEAD_TAIL_CURVES on the first and last CHECK_LANES // 2):
-     exact equality mod p, with both times and the bound. The MSM's fused kernels (strip pass, scan step, window Horner) run
+     exact equality mod p (the field ops word for word), with both times
+     and the bound; B1 with one operand a broadcast constant and B2 on a
+     column slice, word for word; B1 and B2 timed through the wrapper and
+     alone (20 launches in a CUDA graph) at 2^17 and 2^22 lanes. The MSM's
+     fused kernels (strip pass, scan step, window Horner) run
      at the prove's shapes: the strip passes over windows x strips lanes by
      the prove's rows, on keys with long runs, DEAD keys, sign flips and
      repeated points, against the step-by-step loop over the pointwise
@@ -40,8 +44,9 @@ BLS12-381, BN254):
   6. every kernel instance of the prove path was launched by that prove
      (counts zeroed just before ``prove`` and read just after), and every
      setup-only instance by that curve's setup; the NTT's pass kernel exactly
-     7 transforms x the passes of the 2^17 plan, the pointwise butterflies
-     (still checked in phase 3) not at all.
+     7 transforms x the passes of the 2^17 plan, B1 over fr exactly 16
+     times and B2 over fr 4 times, the pointwise butterflies (still checked
+     in phase 3) not at all.
 Then, over BN254 fr:
   7. the NTT at 2^20 against ``Domain.ntt_ref``, and at 2^22 the round trip
      and four outputs against a Horner evaluation in Python ints; at both
@@ -127,6 +132,17 @@ OFF_PATH_OPS = ("neg",)
 OFF_PATH_NTT_OPS = ("butterfly", "butterfly4")
 # transforms a prove runs: 3 INTT, 3 coset NTT and 1 coset INTT (compute_h_dev)
 NTTS_PER_PROVE = 7
+# B1 and B2 over fr a prove launches: per A, B, C the coefficient products,
+# a product by R^2 and a REDC (reduce_columns), a product by 1/n (INTT) and
+# a coset scaling; then a*b, the product by 1/Z_H, and the coset INTT's 1/n
+# and scaling; one REDC of h
+B1_PER_PROVE = 16
+B2_PER_PROVE = 4
+# B1 and B2 alone at this width too (phase 3)
+WIDE_LOG2 = 22
+# the B1 and B2 rows' extra keys in the kernel line: times alone (a CUDA
+# graph of launches), at 2^WIDE_LOG2, and of the broadcast and strided forms
+B1_B2_KEYS = ("alone_ms", "ms_2p22", "alone_ms_2p22", "bound_ms_2p22", "broadcast", "column_slice")
 # per 2^17 prove: one strip pass over the bases and one Horner per MSM, and
 # at most this many launches of the B6 family (pointwise add, projective
 # strip pass, scan step, Horner) at any window count
@@ -278,6 +294,28 @@ def _time_cuda(torch, fn, reps=20):
     return start.elapsed_time(end) / reps
 
 
+def _time_graph(torch, fn, reps=20, replays=3):
+    """ms a launch of the kernels fn() launches, without the host's launch
+    path: reps calls of fn captured into one CUDA graph, replayed."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * reps)
+    del graph
+    return ms
+
+
 def _time_host(fn):
     t0 = time.perf_counter()
     out = fn()
@@ -330,6 +368,68 @@ def bound_of(byts, imads):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def phase_b1_b2(torch, field, a, b, a_c):
+    """B1 by a broadcast constant and B2 on a column slice of a, every lane
+    against the plain versions word for word; then B1 and B2 (and those
+    forms) timed through the wrapper and alone, at a's width (the prove's)
+    and at 2^WIDE_LOG2 lanes. Returns the extra keys of the mul row and of
+    the from_mont row."""
+    words, n, name = field.n, a.shape[1], field.spec.name
+    c = field.const(SEED % field.modulus, mont=True, device=a.device)
+    bc = field.broadcast_const(c, a)
+    cols = a[:, : n - 1]  # compute_h_dev's h[:, : n - 1]: rows at stride n
+    cases = (
+        ("mul by a broadcast constant", lambda: field.mul(a, bc), lambda: field.mul(a_c, field.broadcast_const(c.cpu(), a_c))),
+        ("from_mont of a column slice", lambda: field.from_mont(cols), lambda: field.from_mont(a_c[:, : n - 1])),
+    )
+    for what, run, plain in cases:
+        got = run()
+        torch.cuda.synchronize()
+        bad = _words_differ(torch, [got], [plain()])
+        if bad:
+            fail(f"kernel {name}: {what} disagrees with the plain version on {bad} lanes (word for word)")
+    wide = 1 << WIDE_LOG2
+    a22, b22 = a.repeat(1, wide // n), b.repeat(1, wide // n)
+    bc22 = field.broadcast_const(c, a22)
+    runs = {
+        "mul": (lambda x, y: field.mul(x, y), (a, b), (a22, b22), (2, 1, 1)),
+        "mul_bcast": (lambda x, y: field.mul(x, y), (a, bc), (a22, bc22), (1, 1, 1)),
+        "from_mont": (lambda x: field.from_mont(x), (a,), (a22,), (1, 1, 0.5)),
+        "from_mont_slice": (lambda x: field.from_mont(x), (cols,), (a22[:, : wide - 1],), (1, 1, 0.5)),
+    }
+    out = {}
+    for label, (fn, args, args22, shape) in runs.items():
+        row = dict(
+            ms=_time_cuda(torch, lambda: fn(*args)),
+            alone_ms=_time_graph(torch, lambda: fn(*args)),
+            bound_ms=kernel_bound(words, n, *shape)[0],
+            ms_2p22=_time_cuda(torch, lambda: fn(*args22)),
+            alone_ms_2p22=_time_graph(torch, lambda: fn(*args22)),
+            bound_ms_2p22=kernel_bound(words, wide, *shape)[0],
+        )
+        out[label] = row
+        say(
+            f"[3 b1b2] {label}[{name}] 2^{n.bit_length() - 1}: wrapper {row['ms']:.4f} ms, alone "
+            f"{row['alone_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms | 2^{WIDE_LOG2}: wrapper "
+            f"{row['ms_2p22']:.4f} ms, alone {row['alone_ms_2p22']:.4f} ms, bound {row['bound_ms_2p22']:.4f} ms"
+        )
+    del a22, b22, bc22
+    torch.cuda.empty_cache()
+    say(f"[3 check] {name}: mul by a broadcast constant and from_mont of a column slice equal the plain versions word for word")
+
+    def keys(plain, form, form_name):
+        r = out[plain]
+        return dict(
+            alone_ms=r["alone_ms"],
+            ms_2p22=r["ms_2p22"],
+            alone_ms_2p22=r["alone_ms_2p22"],
+            bound_ms_2p22=r["bound_ms_2p22"],
+            **{form_name: out[form]},
+        )
+
+    return keys("mul", "mul_bcast", "broadcast"), keys("from_mont", "from_mont_slice", "column_slice")
+
+
 def phase_kernels(torch, curve, np_rng, n_wires):
     """Every kernel instance of one curve against its plain version, at the
     widths that a prove over `n_wires` wires gives it."""
@@ -343,10 +443,11 @@ def phase_kernels(torch, curve, np_rng, n_wires):
     dev = torch.device("cuda")
     results = {}
 
-    def record(name, field, run_kernel, run_plain, lanes, bound, sel=None):
+    def record(name, field, run_kernel, run_plain, lanes, bound, sel=None, words=False):
         """run_kernel() -> CUDA outputs; run_plain() -> the CPU outputs of
         the plain version on the same inputs, or on the lanes `sel` (an index
-        tensor) of them, which are then the kernel's lanes compared."""
+        tensor) of them, which are then the kernel's lanes compared; with
+        `words`, word for word and not only mod p."""
         got = run_kernel()
         torch.cuda.synchronize()
         want, plain_ms = _time_host(run_plain)
@@ -355,6 +456,8 @@ def phase_kernels(torch, curve, np_rng, n_wires):
         n_bad, err = 0, 0.0
         for g, w in zip(got, want):
             b, e = _compare(torch, field, g if sel is None else g[:, sel.to(g.device)], w)
+            if words:
+                b = max(b, _words_differ(torch, [w], [g]))
             n_bad += b
             err = max(err, e)
         ms = _time_cuda(torch, run_kernel)
@@ -390,7 +493,11 @@ def phase_kernels(torch, curve, np_rng, n_wires):
                 (lambda: getattr(field, op)(a_c, b_c)) if binary else (lambda: getattr(field, op)(a_c)),
                 n,
                 kernel_bound(words, n, *field_shape[op]),
+                words=True,
             )
+        b1, b2 = phase_b1_b2(torch, field, a, b, a_c)
+        results[f"mul[{name}]"].update(b1)
+        results[f"from_mont[{name}]"].update(b2)
 
     # NTT butterflies over fr, at the flat widths of a 2^17 transform
     p, words, tag = fr.modulus, fr.n, fr.spec.name
@@ -1132,7 +1239,13 @@ def check_launches(curve, setup_only, off_path, setup_launches, launches):
     ntt_launches = launches[f"ntt_stages[{fr_spec.name}]"]
     if ntt_launches != NTTS_PER_PROVE * passes:
         fail(f"{curve}: {ntt_launches} NTT pass launches in one prove, not {NTTS_PER_PROVE} x {passes}")
-    say(f"[6 launches] {curve} prove: B5 family {sum(strips)}, B6 family {b6}, NTT passes {ntt_launches}")
+    b1, b2 = launches[f"mul[{fr_spec.name}]"], launches[f"from_mont[{fr_spec.name}]"]
+    if (b1, b2) != (B1_PER_PROVE, B2_PER_PROVE):
+        fail(f"{curve}: B1 over fr launched {b1} times and B2 {b2} in one prove, not {B1_PER_PROVE} and {B2_PER_PROVE}")
+    say(
+        f"[6 launches] {curve} prove: B5 family {sum(strips)}, B6 family {b6}, NTT passes {ntt_launches}, "
+        f"B1 {b1}, B2 {b2}"
+    )
     say(f"[6 launches] {curve} prove: " + " ".join(f"{k}={launches[k]}" for k in names if k not in setup_only))
     say(f"[6 launches] {curve} setup: " + " ".join(f"{k}={setup_launches[k]}" for k in names))
     say(f"[6 launches] {curve} setup only (not in the prove): " + " ".join(k for k in names if k in setup_only))
@@ -1306,6 +1419,7 @@ def run() -> None:
                     bound_ms=c["bound_ms"],
                     bound_by=c["bound_by"],
                     library_ms=None,  # no PyTorch call computes a multi-word modular product
+                    **{k: c[k] for k in B1_B2_KEYS if k in c},
                     **({"absorbs": ABSORBS[op]} if (op := name.split("[")[0]) in ABSORBS else {}),
                 )
             )

@@ -14,13 +14,18 @@
 // The lazy-range contract is tpusnark's (fields/jfield.py): inputs and
 // outputs of mul/add/sub lie in [0, 2p). It is sound because 4p < R for
 // every field here: a*b < 4p^2 < R*p, so (a*b + m*p)/R < 2p without a final
-// subtraction. CIOS with 32-bit words computes the same (T + m*p)/R as a
-// full-word Montgomery product (m is the unique value < R that makes the sum
-// divisible by R), so results agree word for word with the plain versions.
+// subtraction. The product is CIOS (one word of b a row, then one word of
+// reduction) on the card's integer carry chains (PTX mad.lo.cc / madc.hi.cc /
+// addc); it computes the same (T + m*p)/R as a full-word Montgomery product
+// (m is the unique value < R that makes the sum divisible by R), so results
+// agree word for word with the plain versions. The moduli are compile-time
+// constants, so p, 2p and -p^-1 enter the multiply-adds as immediates.
 #pragma once
 
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <type_traits>
+#include <utility>
 
 namespace ts {
 
@@ -59,8 +64,10 @@ struct Mod {
 };
 
 // One entry per field id; tests/test_torch_field.py checks every value
-// against the FieldSpec of the same name.
-static __constant__ Mod MODS[N_FIELDS] = {
+// against the FieldSpec of the same name. Device code reads it only through
+// p_word, p2_word and inv_of in constant expressions (nvcc keeps a constexpr
+// table on the host and folds its words into the instructions).
+constexpr Mod MODS[N_FIELDS] = {
     // field 0: bn254_fr, 8 words
     {{0xf0000001u, 0x43e1f593u, 0x79b97091u, 0x2833e848u, 0x8181585du,
       0xb85045b6u, 0xe131a029u, 0x30644e72u},
@@ -163,6 +170,22 @@ static __constant__ Mod MODS[N_FIELDS] = {
      0x0b03b13bu},
 };
 
+__host__ __device__ constexpr uint32_t p_word(int f, int k) { return MODS[f].p[k]; }
+__host__ __device__ constexpr uint32_t p2_word(int f, int k) { return MODS[f].p2[k]; }
+__host__ __device__ constexpr uint32_t inv_of(int f) { return MODS[f].inv; }
+
+// fn(std::integral_constant<int, K>{}) for K = 0 .. N-1, in order: inside fn
+// K is a constant expression, so p_word(F, K) is an immediate.
+template <class Fn, int... K>
+__device__ __forceinline__ void unroll_seq(std::integer_sequence<int, K...>, Fn&& fn) {
+  (fn(std::integral_constant<int, K>{}), ...);
+}
+
+template <int N, class Fn>
+__device__ __forceinline__ void unroll(Fn&& fn) {
+  unroll_seq(std::make_integer_sequence<int, N>{}, fn);
+}
+
 template <int N>
 struct Elt {
   uint32_t w[N];
@@ -193,11 +216,84 @@ __device__ __forceinline__ Elt<N> zero() {
   return r;
 }
 
-// Montgomery product a*b*R^-1, CIOS over 32-bit words, fully unrolled.
+// ---- PTX carry-chain primitives ------------------------------------------
+// CC is the chain's carry flag: a ".cc" instruction sets it, a "c" one
+// (madc, addc, subc) reads it. Every statement that sets or reads CC is
+// asm volatile, so they keep their order; what the compiler puts between two
+// of them (moves, address arithmetic) is plain PTX, which never writes CC,
+// and ptxas keeps the flag's dependences when it schedules. A chain ends on
+// an instruction that does not set CC, or its flag is never read.
+// The *_i forms take the second factor or operand as an immediate.
+namespace ptx {
+__device__ __forceinline__ uint32_t mul_lo(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("mul.lo.u32 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ uint32_t mul_hi(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("mul.hi.u32 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+template <uint32_t B>
+__device__ __forceinline__ uint32_t mul_lo_i(uint32_t a) {
+  uint32_t d;
+  asm("mul.lo.u32 %0, %1, %2;" : "=r"(d) : "r"(a), "n"(B));
+  return d;
+}
+// a*b + c, low or high half, that starts a chain (sets CC) or continues one
+#define TS_MAD(fn, op)                                                              \
+  __device__ __forceinline__ uint32_t fn(uint32_t a, uint32_t b, uint32_t c) {     \
+    uint32_t d;                                                                     \
+    asm volatile(op " %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));        \
+    return d;                                                                       \
+  }                                                                                 \
+  template <uint32_t B>                                                             \
+  __device__ __forceinline__ uint32_t fn##_i(uint32_t a, uint32_t c) {              \
+    uint32_t d;                                                                     \
+    asm volatile(op " %0, %1, %2, %3;" : "=r"(d) : "r"(a), "n"(B), "r"(c));     \
+    return d;                                                                       \
+  }
+TS_MAD(mad_lo_cc, "mad.lo.cc.u32")
+TS_MAD(mad_hi_cc, "mad.hi.cc.u32")
+TS_MAD(madc_lo_cc, "madc.lo.cc.u32")
+TS_MAD(madc_hi_cc, "madc.hi.cc.u32")
+TS_MAD(madc_hi, "madc.hi.u32")
+#undef TS_MAD
+// a + b and a - b along a chain
+#define TS_ADD(fn, op)                                                              \
+  __device__ __forceinline__ uint32_t fn(uint32_t a, uint32_t b) {                 \
+    uint32_t d;                                                                     \
+    asm volatile(op " %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));                    \
+    return d;                                                                       \
+  }                                                                                 \
+  template <uint32_t B>                                                             \
+  __device__ __forceinline__ uint32_t fn##_i(uint32_t a) {                          \
+    uint32_t d;                                                                     \
+    asm volatile(op " %0, %1, %2;" : "=r"(d) : "r"(a), "n"(B));                 \
+    return d;                                                                       \
+  }
+TS_ADD(add_cc, "add.cc.u32")
+TS_ADD(addc_cc, "addc.cc.u32")
+TS_ADD(addc, "addc.u32")
+TS_ADD(sub_cc, "sub.cc.u32")
+TS_ADD(subc_cc, "subc.cc.u32")
+TS_ADD(subc, "subc.u32")
+#undef TS_ADD
+}  // namespace ptx
+// ---- end of the primitives ------------------------------------------------
+
+#ifdef TS_MONT_CIOS_C
+// The earlier product, for the benchmark's old-against-new runs only
+// (scripts/bench_mont_product.py builds with -DTS_MONT_CIOS_C): CIOS in C
+// over 64-bit sums, which nvcc compiles to wide multiply-adds and separate
+// 64-bit adds and shifts.
 template <int F>
-__device__ __forceinline__ EltOf<F> mul_unrolled(const EltOf<F>& a, const EltOf<F>& b) {
+__device__ __forceinline__ EltOf<F> mul_cios_c(const EltOf<F>& a, const EltOf<F>& b) {
   constexpr int N = words_of(F);
-  const Mod& M = MODS[F];
+  constexpr uint32_t INV = inv_of(F);
+  uint32_t P[N];
+  unroll<N>([&](auto kc) { P[decltype(kc)::value] = p_word(F, decltype(kc)::value); });
   uint32_t t[N + 2];
 #pragma unroll
   for (int k = 0; k < N + 2; k++) t[k] = 0;
@@ -213,12 +309,12 @@ __device__ __forceinline__ EltOf<F> mul_unrolled(const EltOf<F>& a, const EltOf<
     uint64_t s = (uint64_t)t[N] + c;
     t[N] = (uint32_t)s;
     t[N + 1] = (uint32_t)(s >> 32);
-    uint32_t m = t[0] * M.inv;
-    s = (uint64_t)t[0] + (uint64_t)m * M.p[0];
+    uint32_t m = t[0] * INV;
+    s = (uint64_t)t[0] + (uint64_t)m * P[0];
     c = s >> 32;
 #pragma unroll
     for (int j = 1; j < N; j++) {
-      s = (uint64_t)t[j] + (uint64_t)m * M.p[j] + c;
+      s = (uint64_t)t[j] + (uint64_t)m * P[j] + c;
       t[j - 1] = (uint32_t)s;
       c = s >> 32;
     }
@@ -231,6 +327,130 @@ __device__ __forceinline__ EltOf<F> mul_unrolled(const EltOf<F>& a, const EltOf<
   for (int k = 0; k < N; k++) r.w[k] = t[k];
   return r;
 }
+#endif
+
+// The Montgomery product keeps its running sum T (below 3pW < W^(N+1),
+// W = 2^32: the bound of CIOS with a, b < 2p) in two accumulators, after
+// Emmart and Weems (ARITH 2016): e, aligned at word 0, takes the products
+// a_j b_i of even j; o, aligned at word 1 (o[k] weighs W^(k+1)), those of
+// odd j. In each, the low and high halves of one product land in adjacent
+// words and the next product's start above them, so one carry chain runs
+// up a whole accumulator and a low half never waits on a high half's carry.
+// T = e + W o. Reduction: m = e[0] * (-1/p) mod W, then the odd words of m p
+// into o and the even ones into e; e[0] becomes 0 and T/W = e/W + o. The next
+// row re-aligns for free (word indices are compile-time): o becomes the new e
+// with e[1] added into its word 0, whose carry enters the new o, and e's
+// words 2..N become the new o. Every partial sum of either accumulator is at
+// most T, so the top word takes the last carry and none leaves it: where a
+// chain's top instruction does not set CC, its carry-out is 0 by that bound
+// (also at 9 words, where p's top word is 0, and at 24). After the last row
+// the two are merged: (e/W + o) < 2p < R.
+
+// Reduction step: e += (even words of m p), o += (odd words of m p).
+template <int F>
+__device__ __forceinline__ void reduce_row(uint32_t (&e)[words_of(F) + 1], uint32_t (&o)[words_of(F)]) {
+  constexpr int N = words_of(F);
+  const uint32_t m = ptx::mul_lo_i<inv_of(F)>(e[0]);
+  unroll<N>([&](auto jc) {  // odd j: halves at o[j - 1], o[j]
+    constexpr int j = decltype(jc)::value;
+    constexpr uint32_t P = p_word(F, j);
+    if constexpr (j % 2 == 1) {
+      if constexpr (j == 1)
+        o[0] = ptx::mad_lo_cc_i<P>(m, o[0]);
+      else
+        o[j - 1] = ptx::madc_lo_cc_i<P>(m, o[j - 1]);
+      if constexpr (j == N - 1)
+        o[j] = ptx::madc_hi_i<P>(m, o[j]);  // the top word
+      else
+        o[j] = ptx::madc_hi_cc_i<P>(m, o[j]);
+    }
+  });
+  if constexpr (N % 2 == 1) o[N - 1] = ptx::addc(o[N - 1], 0);
+  unroll<N>([&](auto jc) {  // even j: halves at e[j], e[j + 1]
+    constexpr int j = decltype(jc)::value;
+    constexpr uint32_t P = p_word(F, j);
+    if constexpr (j % 2 == 0) {
+      if constexpr (j == 0)
+        e[0] = ptx::mad_lo_cc_i<P>(m, e[0]);  // 0 mod W: only its carry is kept
+      else
+        e[j] = ptx::madc_lo_cc_i<P>(m, e[j]);
+      if constexpr (j + 1 == N)
+        e[j + 1] = ptx::madc_hi_i<P>(m, e[j + 1]);  // the top word
+      else
+        e[j + 1] = ptx::madc_hi_cc_i<P>(m, e[j + 1]);
+    }
+  });
+  if constexpr (N % 2 == 0) e[N] = ptx::addc(e[N], 0);
+}
+
+// Montgomery product a*b*R^-1, fully unrolled.
+template <int F>
+__device__ __forceinline__ EltOf<F> mul_unrolled(const EltOf<F>& a, const EltOf<F>& b) {
+#ifdef TS_MONT_CIOS_C
+  return mul_cios_c<F>(a, b);
+#else
+  constexpr int N = words_of(F);
+  uint32_t e[N + 1], o[N];
+  // row 0: the products alone; the halves of one product fill two words
+#pragma unroll
+  for (int j = 0; j < N; j++) {
+    const uint32_t lo = ptx::mul_lo(a.w[j], b.w[0]), hi = ptx::mul_hi(a.w[j], b.w[0]);
+    if (j % 2 == 0) {
+      e[j] = lo;
+      e[j + 1] = hi;
+    } else {
+      o[j - 1] = lo;
+      o[j] = hi;
+    }
+  }
+  if constexpr (N % 2 == 0)
+    e[N] = 0;
+  else
+    o[N - 1] = 0;
+  reduce_row<F>(e, o);
+#pragma unroll
+  for (int i = 1; i < N; i++) {
+    const uint32_t bi = b.w[i];
+    uint32_t e2[N + 1], o2[N];
+    // T/W = o + e[1] + W (e >> 2 words): the new e is o plus e[1], the new o
+    // is e's words 2..N, each taking a row of products as it is formed
+    e2[0] = ptx::add_cc(o[0], e[1]);  // its carry weighs W: into o2[0]
+#pragma unroll
+    for (int j = 1; j < N; j += 2) {
+      o2[j - 1] = ptx::madc_lo_cc(a.w[j], bi, e[j + 1]);
+      if (j + 2 <= N)
+        o2[j] = ptx::madc_hi_cc(a.w[j], bi, e[j + 2]);
+      else
+        o2[j] = ptx::madc_hi(a.w[j], bi, 0);  // j = N - 1: the top word
+    }
+    if constexpr (N % 2 == 1) o2[N - 1] = ptx::addc(0, 0);
+    e2[0] = ptx::mad_lo_cc(a.w[0], bi, e2[0]);
+    e2[1] = ptx::madc_hi_cc(a.w[0], bi, o[1]);
+#pragma unroll
+    for (int j = 2; j < N; j += 2) {
+      e2[j] = ptx::madc_lo_cc(a.w[j], bi, o[j]);
+      if (j + 1 < N)
+        e2[j + 1] = ptx::madc_hi_cc(a.w[j], bi, o[j + 1]);
+      else
+        e2[j + 1] = ptx::madc_hi(a.w[j], bi, 0);  // j = N - 1: the top word
+    }
+    if constexpr (N % 2 == 0) e2[N] = ptx::addc(0, 0);
+    reduce_row<F>(e2, o2);
+#pragma unroll
+    for (int k = 0; k < N; k++) {
+      e[k] = e2[k];
+      o[k] = o2[k];
+    }
+    e[N] = e2[N];
+  }
+  EltOf<F> r;
+  r.w[0] = ptx::add_cc(e[1], o[0]);
+#pragma unroll
+  for (int k = 1; k < N - 1; k++) r.w[k] = ptx::addc_cc(e[k + 1], o[k]);
+  r.w[N - 1] = ptx::addc(e[N], o[N - 1]);
+  return r;
+#endif
+}
 
 // The same product as one function that its callers call: above
 // INLINE_MUL_WORDS a product is thousands of instructions (2,328 multiply-adds
@@ -241,7 +461,10 @@ __device__ __noinline__ EltOf<F> mul_called(const EltOf<F>& a, const EltOf<F>& b
   return mul_unrolled<F>(a, b);
 }
 
-constexpr int INLINE_MUL_WORDS = 12;
+#ifndef TS_INLINE_MUL_WORDS
+#define TS_INLINE_MUL_WORDS 12
+#endif
+constexpr int INLINE_MUL_WORDS = TS_INLINE_MUL_WORDS;
 
 template <int F>
 __device__ __forceinline__ EltOf<F> mul(const EltOf<F>& a, const EltOf<F>& b) {
@@ -251,50 +474,91 @@ __device__ __forceinline__ EltOf<F> mul(const EltOf<F>& a, const EltOf<F>& b) {
     return mul_unrolled<F>(a, b);
 }
 
+// REDC(a) = a * R^-1 for any a < R: N rounds of m = t0 * (-1/p) mod W and
+// t = (t + m p) / W, on one accumulator of N + 1 words (t + m p < R + W p <
+// W^(N+1)). The result (a + M p)/R, M < R, is at most p, and p only where
+// a = 0 mod p: the same words as the product a * 1.
+template <int F>
+__device__ __forceinline__ EltOf<F> redc(const EltOf<F>& a) {
+  constexpr int N = words_of(F);
+  uint32_t t[N + 1];
+#pragma unroll
+  for (int k = 0; k < N; k++) t[k] = a.w[k];
+  t[N] = 0;
+#pragma unroll
+  for (int r = 0; r < N; r++) {
+    const uint32_t m = ptx::mul_lo_i<inv_of(F)>(t[0]);
+    unroll<N>([&](auto jc) {  // low halves at t[j]
+      constexpr int j = decltype(jc)::value;
+      constexpr uint32_t P = p_word(F, j);
+      if constexpr (j == 0)
+        t[0] = ptx::mad_lo_cc_i<P>(m, t[0]);  // 0 mod W
+      else
+        t[j] = ptx::madc_lo_cc_i<P>(m, t[j]);
+    });
+    t[N] = ptx::addc(t[N], 0);
+    unroll<N>([&](auto jc) {  // high halves at t[j + 1]
+      constexpr int j = decltype(jc)::value;
+      constexpr uint32_t P = p_word(F, j);
+      if constexpr (j == 0)
+        t[1] = ptx::mad_hi_cc_i<P>(m, t[1]);
+      else if constexpr (j + 1 < N)
+        t[j + 1] = ptx::madc_hi_cc_i<P>(m, t[j + 1]);
+      else
+        t[N] = ptx::madc_hi_i<P>(m, t[N]);  // the top word
+    });
+#pragma unroll
+    for (int k = 0; k < N; k++) t[k] = t[k + 1];
+    t[N] = 0;
+  }
+  EltOf<F> res;
+#pragma unroll
+  for (int k = 0; k < N; k++) res.w[k] = t[k];
+  return res;
+}
+
 // a + b, reduced by 2p when the sum reaches 2p (a, b < 2p; sum < 4p < R).
 template <int F>
 __device__ __forceinline__ EltOf<F> add(const EltOf<F>& a, const EltOf<F>& b) {
   constexpr int N = words_of(F);
-  const Mod& M = MODS[F];
   EltOf<F> s, d;
-  uint64_t c = 0;
+  s.w[0] = ptx::add_cc(a.w[0], b.w[0]);
 #pragma unroll
-  for (int k = 0; k < N; k++) {
-    uint64_t v = (uint64_t)a.w[k] + b.w[k] + c;
-    s.w[k] = (uint32_t)v;
-    c = v >> 32;
-  }
-  int64_t br = 0;
-#pragma unroll
-  for (int k = 0; k < N; k++) {
-    int64_t v = (int64_t)s.w[k] - M.p2[k] + br;
-    d.w[k] = (uint32_t)v;
-    br = v >> 32;  // 0 or -1
-  }
-  return br ? s : d;
+  for (int k = 1; k < N - 1; k++) s.w[k] = ptx::addc_cc(a.w[k], b.w[k]);
+  s.w[N - 1] = ptx::addc(a.w[N - 1], b.w[N - 1]);
+  uint32_t borrow;
+  unroll<N>([&](auto kc) {
+    constexpr int k = decltype(kc)::value;
+    constexpr uint32_t P2 = p2_word(F, k);
+    if constexpr (k == 0)
+      d.w[0] = ptx::sub_cc_i<P2>(s.w[0]);
+    else
+      d.w[k] = ptx::subc_cc_i<P2>(s.w[k]);
+  });
+  borrow = ptx::subc(0, 0);  // 0 or 0xffffffff: s < 2p
+  return borrow ? s : d;
 }
 
 // a - b, plus 2p when it borrows (a, b < 2p).
 template <int F>
 __device__ __forceinline__ EltOf<F> sub(const EltOf<F>& a, const EltOf<F>& b) {
   constexpr int N = words_of(F);
-  const Mod& M = MODS[F];
   EltOf<F> d;
-  int64_t br = 0;
+  d.w[0] = ptx::sub_cc(a.w[0], b.w[0]);
 #pragma unroll
-  for (int k = 0; k < N; k++) {
-    int64_t v = (int64_t)a.w[k] - b.w[k] + br;
-    d.w[k] = (uint32_t)v;
-    br = v >> 32;
-  }
-  if (br) {
-    uint64_t c = 0;
-#pragma unroll
-    for (int k = 0; k < N; k++) {
-      uint64_t v = (uint64_t)d.w[k] + M.p2[k] + c;
-      d.w[k] = (uint32_t)v;
-      c = v >> 32;
-    }
+  for (int k = 1; k < N; k++) d.w[k] = ptx::subc_cc(a.w[k], b.w[k]);
+  const uint32_t borrow = ptx::subc(0, 0);
+  if (borrow) {
+    unroll<N>([&](auto kc) {
+      constexpr int k = decltype(kc)::value;
+      constexpr uint32_t P2 = p2_word(F, k);
+      if constexpr (k == 0)
+        d.w[0] = ptx::add_cc_i<P2>(d.w[0]);
+      else if constexpr (k + 1 < N)
+        d.w[k] = ptx::addc_cc_i<P2>(d.w[k]);
+      else
+        d.w[k] = ptx::addc_i<P2>(d.w[k]);  // mod R
+    });
   }
   return d;
 }

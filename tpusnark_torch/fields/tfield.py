@@ -201,6 +201,21 @@ def _flat(a: torch.Tensor) -> torch.Tensor:
     return a.reshape(a.shape[0], -1).contiguous()
 
 
+def _lanes(a: torch.Tensor, shape) -> torch.Tensor:
+    """`a` broadcast to `shape` (words, *batch) as the (words, lanes) operand
+    of a field kernel, without a copy where the kernel can read it in place:
+    one element for every lane (a broadcast constant) as a stride-0 view,
+    rows whose lanes are contiguous (a column slice) as a view with their
+    word stride; anything else as a contiguous copy."""
+    if a.shape != shape:
+        a = a.expand(shape)
+    words = shape[0]
+    if all(s == 0 or d == 1 for s, d in zip(a.stride()[1:], shape[1:])):
+        return a.as_strided((words, a[0].numel()), (a.stride(0), 0))
+    rows = a.reshape(words, -1)
+    return rows if rows.shape[1] <= 1 or rows.stride(1) == 1 else rows.contiguous()
+
+
 def _device_kind(*ts) -> str:
     kinds = {t.device.type for t in ts}
     if len(kinds) != 1:
@@ -272,14 +287,14 @@ class Field:
 
     # ------------------------------------------------------------ dispatch
     def _binary(self, op: str, a, b, plain):
-        a, b = torch.broadcast_tensors(a, b)
         if _device_kind(a, b) == "cuda":
-            return kernels.field_binary(op, self.spec, _flat(a), _flat(b)).view(a.shape)
-        return plain(a, b)
+            shape = a.shape if a.shape == b.shape else torch.broadcast_shapes(a.shape, b.shape)
+            return kernels.field_binary(op, self.spec, _lanes(a, shape), _lanes(b, shape)).view(shape)
+        return plain(*torch.broadcast_tensors(a, b))
 
     def _unary(self, op: str, a, plain):
         if _device_kind(a) == "cuda":
-            return kernels.field_unary(op, self.spec, _flat(a)).view(a.shape)
+            return kernels.field_unary(op, self.spec, _lanes(a, a.shape)).view(a.shape)
         return plain(a)
 
     # ------------------------------------------------------------ add / sub

@@ -10,7 +10,8 @@ here is imported or built until a CUDA tensor reaches a wrapper, so the
 module imports on a machine without ``nvcc`` or a card.
 
 Every wrapper takes CUDA tensors only: int32 ``(words, N)`` limb-major words
-that hold uint32 bit patterns, contiguous, with the word count of the field
+that hold uint32 bit patterns, contiguous (the field ops also take rows of
+any stride, and an operand expanded from one element), with the word count of the field
 (8 for BN254, BLS12-377 and BLS24-315 fr, 9 for BLS12-381 and BLS24-317 fr,
 10 for BLS24-315 fp, BLS24-317 fp and BW6-633 fr, 12 for BLS12-381 fp,
 BLS12-377 fp and BW6-761 fr, 20 for BW6-633 fp, 24 for BW6-761 fp). It checks them, and
@@ -151,11 +152,14 @@ _lib = None
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
-    "ts_field_mul": (ctypes.c_int, _P, _P, _P, ctypes.c_long, _P),
-    "ts_field_add": (ctypes.c_int, _P, _P, _P, ctypes.c_long, _P),
-    "ts_field_sub": (ctypes.c_int, _P, _P, _P, ctypes.c_long, _P),
-    "ts_field_from_mont": (ctypes.c_int, _P, _P, ctypes.c_long, _P),
-    "ts_field_neg": (ctypes.c_int, _P, _P, ctypes.c_long, _P),
+    **{
+        f"ts_field_{op}": (ctypes.c_int, _P, ctypes.c_long, _P, ctypes.c_long, _P, ctypes.c_long, ctypes.c_int, _P)
+        for op in ("mul", "add", "sub")
+    },
+    **{
+        f"ts_field_{op}": (ctypes.c_int, _P, ctypes.c_long, _P, ctypes.c_long, ctypes.c_int, _P)
+        for op in ("from_mont", "neg")
+    },
     "ts_ntt_butterfly": (ctypes.c_int, _P, _P, _P, _P, _P, ctypes.c_long, _P),
     "ts_ntt_butterfly4": (ctypes.c_int, _P, ctypes.c_long, _P),
     "ts_ntt_stages": (
@@ -188,16 +192,16 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _source_hash() -> str:
+def _source_hash(flags=NVCC_FLAGS) -> str:
     h = hashlib.sha256()
     for name in sorted(SOURCES + HEADERS):
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags).encode())
     return h.hexdigest()[:16]
 
 
-def _compile(out_dir: Path, so: Path) -> dict:
+def _compile(out_dir: Path, so: Path, flags=NVCC_FLAGS) -> dict:
     """One nvcc per source, all started together, then one link; the ptxas
     reports go to ptxas.log. Returns the compile seconds per source."""
     nvcc = _nvcc()
@@ -205,7 +209,7 @@ def _compile(out_dir: Path, so: Path) -> dict:
 
     def compile_one(src):
         t0 = time.perf_counter()
-        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(objs[src]), str(CSRC / src)]
+        cmd = [nvcc, *flags, "-c", "-o", str(objs[src]), str(CSRC / src)]
         res = subprocess.run(cmd, capture_output=True, text=True)
         return res, time.perf_counter() - t0
 
@@ -228,18 +232,19 @@ def _compile(out_dir: Path, so: Path) -> dict:
     return seconds
 
 
-def build() -> ctypes.CDLL:
-    """Compile (once per source hash) and load the kernel library."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    out_dir = CSRC / "_build" / _source_hash()
+def build_variant(defines=()) -> tuple[ctypes.CDLL, dict]:
+    """Compile (once per source hash and flags) and load the kernel library
+    built with the preprocessor `defines`, and its build report. The port's
+    own build (``build``) has none; a benchmark that compares builds (e.g.
+    "-DTS_MONT_CIOS_C") swaps one in with ``use_library``."""
+    flags = NVCC_FLAGS + tuple(defines)
+    out_dir = CSRC / "_build" / _source_hash(flags)
     so = out_dir / "libtpusnark_torch_kernels.so"
     t0 = time.perf_counter()
     compiled, source_seconds = False, {}
     if not so.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
-        source_seconds = _compile(out_dir, so)
+        source_seconds = _compile(out_dir, so, flags)
         compiled = True
     log = out_dir / "ptxas.log"
     lib = ctypes.CDLL(str(so))
@@ -247,15 +252,42 @@ def build() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = list(sig)
         fn.restype = ctypes.c_int
-    BUILD_INFO.update(
+    info = dict(
         path=str(so),
         compiled=compiled,
         seconds=time.perf_counter() - t0,
         source_seconds=source_seconds,
         ptxas=log.read_text() if log.exists() else "",
     )
+    return lib, info
+
+
+def build() -> ctypes.CDLL:
+    """Compile (once per source hash) and load the kernel library."""
+    global _lib
+    if _lib is None:
+        lib, info = build_variant()
+        BUILD_INFO.update(info)
+        use_library(lib)
+    return _lib
+
+
+def use_library(lib: ctypes.CDLL) -> None:
+    """Launch every later kernel from `lib` (a build or a build_variant)."""
+    global _lib
     _lib = lib
-    return lib
+    _FNS.clear()
+
+
+# entry point name -> its bound function in the loaded library
+_FNS: dict = {}
+
+
+def _fn(name: str):
+    fn = _FNS.get(name)
+    if fn is None:
+        fn = _FNS[name] = getattr(build(), name)
+    return fn
 
 
 # ------------------------------------------------------------------ checks
@@ -300,28 +332,60 @@ def _spec(spec, op: str | None = None) -> tuple[int, int]:
     return fid, words
 
 
+def _field_operand(t, words: int, n: int | None, what: str) -> tuple[int, int]:
+    """(word stride, 1 if broadcast) of a field op's operand: an int32 CUDA
+    tensor (words, n) whose lanes sit at stride 1 (rows of any stride: a
+    column slice), or at stride 0 (one element for every lane)."""
+    if not isinstance(t, torch.Tensor) or not t.is_cuda:
+        raise ValueError(f"{what}: expected a CUDA tensor")
+    if t.dtype != torch.int32:
+        raise TypeError(f"{what}: expected int32 words, got {t.dtype}")
+    if t.dim() != 2 or t.shape[0] != words:
+        raise ValueError(f"{what}: expected shape ({words}, N), got {tuple(t.shape)}")
+    if n is not None and t.shape[1] != n:
+        raise ValueError(f"{what}: expected {n} lanes, got {t.shape[1]}")
+    sw, sl = t.stride()
+    if t.shape[1] > 1 and sl not in (0, 1):
+        raise ValueError(f"{what}: expected lanes at stride 1, or 0 (one element for every lane)")
+    return sw, int(sl == 0 and t.shape[1] > 1)
+
+
 def field_binary(op: str, spec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """op in {mul, add, sub}: B1 (mul) and the lazy add/sub, lanewise."""
+    """op in {mul, add, sub}: B1 (mul) and the lazy add/sub, lanewise, into
+    a new contiguous (words, N). Either operand may be one element expanded
+    to N lanes (stride 0; read once a block) and may sit in rows of any
+    stride: nothing is copied."""
     fid, words = _spec(spec, op)
-    n = _check(a, words, what=f"{op} a")
-    _check(b, words, n, what=f"{op} b")
-    lib = build()
-    out = torch.empty_like(a)
+    sa, ba = _field_operand(a, words, None, f"{op} a")
+    n = a.shape[1]
+    sb, bb = _field_operand(b, words, n, f"{op} b")
+    out = torch.empty((words, n), dtype=torch.int32, device=a.device)
     if n:
-        fn = getattr(lib, f"ts_field_{op}")
-        _launch(f"{op}[{spec.name}]", fn, fid, a.data_ptr(), b.data_ptr(), out.data_ptr(), n, _stream(a))
+        _launch(
+            f"{op}[{spec.name}]",
+            _fn(f"ts_field_{op}"),
+            fid,
+            a.data_ptr(),
+            sa,
+            b.data_ptr(),
+            sb,
+            out.data_ptr(),
+            n,
+            ba | bb << 1,
+            _stream(a),
+        )
     return out
 
 
 def field_unary(op: str, spec, a: torch.Tensor) -> torch.Tensor:
-    """op in {from_mont, neg}: B2 (from_mont) and the lazy negation."""
+    """op in {from_mont, neg}: B2 (from_mont) and the lazy negation, into a
+    new contiguous (words, N); `a` as a field_binary operand."""
     fid, words = _spec(spec, op)
-    n = _check(a, words, what=f"{op} a")
-    lib = build()
-    out = torch.empty_like(a)
+    sa, ba = _field_operand(a, words, None, f"{op} a")
+    n = a.shape[1]
+    out = torch.empty((words, n), dtype=torch.int32, device=a.device)
     if n:
-        fn = getattr(lib, f"ts_field_{op}")
-        _launch(f"{op}[{spec.name}]", fn, fid, a.data_ptr(), out.data_ptr(), n, _stream(a))
+        _launch(f"{op}[{spec.name}]", _fn(f"ts_field_{op}"), fid, a.data_ptr(), sa, out.data_ptr(), n, ba, _stream(a))
     return out
 
 

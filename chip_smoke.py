@@ -52,8 +52,25 @@ Then, over BN254 fr:
      and four outputs against a Horner evaluation in Python ints; at both
      sizes one transform timed through the pass kernel and through the
      pointwise stage loop the pass kernel replaced.
-Then one JSON line with every kernel instance, the card line, and the result
-line. Any failure exits non-zero before the result line. Imports neither
+Then the device witness solver and BSB22 commitments:
+  8. per curve, the wide circuit (``wide_circuit``: 1024 product chains side
+     by side, a division, an inverse and a to_binary hint) at 2^14
+     constraints over the curve's r: the device solver's W against the host
+     solver's, wire for wire, with both times and the launches of a warm
+     device solve; over BN254 the wide circuit with a BSB22 commitment at
+     2^17: seeded setup, the device solve alone against the host solver,
+     one prove through the default device branch and one with
+     accelerator="host" under the same rng, equal point for point
+     (commitment and proof of knowledge included), each phase timed, and
+     the launches of each; the branch each prove took (the chain's proves
+     took the host solver: phase 6's B1 and B2 counts; the shape rule keeps
+     the chain on the host and sends the wide circuit to the card); then
+     tests/test_commit.py's circuit proved on the card. The port's host
+     verifier must accept both proofs and reject a wrong public input (in
+     the worker processes).
+Then one JSON line with every kernel instance (with, beside the chain's
+prove launches, those of the 2^14 wide device solve and, for BN254, of the
+2^17 wide device-branch prove), the card line, and the result line. Any failure exits non-zero before the result line. Imports neither
 JAX nor the JAX package ``tpusnark``: the port stands on its own host layer.
 """
 
@@ -73,6 +90,11 @@ LOG2_CONSTRAINTS = 17
 SEED = 20261016
 # the NTT's large sizes, BN254 fr only (phase 7)
 LARGE_NTT_LOG2 = (20, 22)
+# the wide circuit (phase 8): chains of products side by side, over every
+# curve's r at 2^WIDE_SOLVE_LOG2 constraints, and over BN254 with a BSB22
+# commitment at 2^LOG2_CONSTRAINTS
+WIDE_CHAINS = 1024
+WIDE_SOLVE_LOG2 = 14
 # the curves whose verdicts take longest first: they are computed beside the
 # rest
 CURVES = ("bls24-315", "bls24-317", "bw6-761", "bw6-633", "bls12-377", "bls12-381", "bn254")
@@ -1058,6 +1080,49 @@ def mul_chain(log2n: int, p: int):
     return cs, {"x": 3, "y": (pow(3, n, p) + 3 + 5) % p}
 
 
+def wide_circuit(log2n: int, p: int, chains: int | None = None, commit: bool = False, builder=None):
+    """A circuit the device solver takes (tpusnark's prefer_device rule
+    holds at 2^14 and up): `chains` (WIDE_CHAINS) independent product chains over seeded
+    64-bit secrets, s_i times s_(i+1) a step, as deep as fits in 2^log2n
+    constraints (more than half of them). One step of every chain is a
+    division (an inverse, its unknown in R, then a product) and one an
+    inverse; a to_binary of s_0 adds a hint to the first level; the chain
+    ends are summed into the one public output (`chains` terms of one
+    constraint). With `commit`, a BSB22 commitment to the first four chains
+    at their midpoint, whose challenge multiplies each of them in a later
+    constraint. `builder`: the Builder class (the port's by default).
+    Returns (cs, assignment)."""
+    if builder is None:
+        from tpusnark_torch.frontend.builder import Builder as builder
+    chains = chains or WIDE_CHAINS
+    extra = 66 + (4 if commit else 0)  # to_binary (64 bits + recomposition), output, commitment
+    depth = ((1 << log2n) - extra - chains) // chains
+    d_div, d_inv, d_com = depth // 3, 2 * depth // 3, depth // 2
+    rng = random.Random(SEED + log2n)
+    secrets = [rng.randrange(1, 1 << 64) for _ in range(chains)]
+    b = builder(p)
+    s = [b.secret(f"s{i}") for i in range(chains)]
+    b.to_binary(s[0], 64)
+    acc, val = list(s), list(secrets)
+    for d in range(depth):
+        for i in range(chains):
+            if d == d_div:
+                acc[i], val[i] = b.div(s[i], acc[i]), secrets[i] * pow(val[i], -1, p) % p
+            elif d == d_inv:
+                acc[i], val[i] = b.inverse(acc[i]), pow(val[i], -1, p)
+            else:
+                j = (i + 1) % chains
+                acc[i], val[i] = b.mul(acc[i], s[j]), val[i] * secrets[j] % p
+        if commit and d == d_com:
+            c = b.commit(*acc[:4])
+            for i in range(4):
+                b.mul(c, acc[i])
+    b.assert_is_equal(b.add(*acc), b.public("y"))
+    cs = b.compile()
+    assert (1 << (log2n - 1)) < len(cs.constraints) <= 1 << log2n, len(cs.constraints)
+    return cs, {"y": sum(val) % p, **{f"s{i}": v for i, v in enumerate(secrets)}}
+
+
 def verifier_names(curve):
     return ("verify", "bls381.verify") if curve == "bls12-381" else ("verify",)
 
@@ -1353,6 +1418,192 @@ def phase_ntt_large(torch, dev, np_rng):
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- phase 8
+# the field kernels the device solver launches, over the curve's r
+SOLVER_OPS = ("mul", "from_mont", "add", "sub")
+
+
+def _sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def solver_launches(curve, launches):
+    """{op: launches over the curve's fr} of SOLVER_OPS."""
+    from tpusnark_torch.curves.config import get_curve
+
+    fr = get_curve(curve).fr_spec.name
+    return {op: launches.get(f"{op}[{fr}]", 0) for op in SOLVER_OPS}
+
+
+def _fmt(counts):
+    return " ".join(f"{k}={v}" for k, v in counts.items())
+
+
+def phase_wide_solve(torch, dev, curve):
+    """The device solver against the host solver on the wide circuit at
+    2^WIDE_SOLVE_LOG2 constraints over the curve's r, wire for wire
+    (decoded), with both times; returns the launches of a warm device solve
+    (counts zeroed just before it, read just after)."""
+    from tpusnark_torch import kernels
+    from tpusnark_torch.constraint.solver import solve
+    from tpusnark_torch.constraint.solver_torch import get_level_solver, prefer_device
+    from tpusnark_torch.curves.config import get_curve
+    from tpusnark_torch.fields.tfield import get_field
+
+    cfg = get_curve(curve)
+    cs, assign = wide_circuit(WIDE_SOLVE_LOG2, cfg.host.R)
+    if not prefer_device(cs):
+        fail(f"{curve}: the shape rule keeps the wide circuit on the host")
+    t0 = time.perf_counter()
+    want = solve(cs, assign)
+    host_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ls = get_level_solver(cs, cfg.fr_spec, dev)
+    build_s = time.perf_counter() - t0
+    times = []
+    for _ in range(2):  # the first solve builds the bulk check's evaluator
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        W, _ = ls.solve_with_abc(assign)
+        _sync(torch, dev)
+        times.append(time.perf_counter() - t0)
+    launches = dict(kernels.LAUNCHES)
+    got = get_field(cfg.fr_spec).decode(W)
+    n_bad = sum(a != b for a, b in zip(got, want))
+    if n_bad or len(got) != len(want):
+        fail(f"{curve}: the device solver differs from the host solver on {n_bad} of {len(want)} wires")
+    counts = solver_launches(curve, launches)
+    if dev.type == "cuda" and not (counts["mul"] and counts["from_mont"]):
+        fail(f"{curve}: the device solve launched no B1 or no B2 over fr: {counts}")
+    n_levels = len(cs.compute_levels())
+    say(
+        f"[8 solve] {curve}: wide circuit, {len(cs.constraints)} constraints in {n_levels} levels: the device "
+        f"solver's W equals the host solver's on all {len(want)} wires | host {host_s:.4f} s, device: solver "
+        f"built {build_s:.4f} s, first solve {times[0]:.4f} s, warm {times[1]:.4f} s | warm solve's launches "
+        f"over fr: {_fmt(counts)}"
+    )
+    return launches
+
+
+def commit_circuit(p):
+    """tests/test_commit.py's circuit: y == x^3 + c*x + 5 + pub with c =
+    Commit(x, pub), a BSB22 challenge."""
+    from tpusnark_torch.frontend.builder import Builder
+
+    b = Builder(p)
+    x = b.secret("x")
+    pub = b.public("pub")
+    c = b.commit(x, pub)
+    b.assert_is_equal(b.add(b.mul(x, x, x), b.mul(c, x), 5, pub), b.public("y"))
+    return b.compile()
+
+
+def _proof_image(proof):
+    return (proof.ar, proof.bs, proof.krs, proof.commitments, proof.commitment_pok)
+
+
+def phase_wide_prove(torch, dev, pool, setup_only, off_path):
+    """BN254, the wide circuit with a BSB22 commitment at 2^LOG2_CONSTRAINTS:
+    seeded setup; the device solve (the prove's solve phase, alone) against
+    the host solver; a prove through the default device branch and one with
+    accelerator="host" under the same rng, equal point for point; then
+    tests/test_commit.py's circuit. Returns the launches of the device solve
+    and of the device-branch prove, and the pending verdicts."""
+    from tpusnark_torch import kernels
+    from tpusnark_torch.backend.config import ProverConfig
+    from tpusnark_torch.backend.groth16 import prove, setup
+    from tpusnark_torch.backend.groth16.prove import bsb22_prover_state
+    from tpusnark_torch.constraint.solver import solve
+    from tpusnark_torch.constraint.solver_torch import solve_any
+    from tpusnark_torch.curves.config import get_curve
+    from tpusnark_torch.curves.marshal import g1_raw
+    from tpusnark_torch.curves.pedersen import pedersen_commit
+    from tpusnark_torch.fields.tfield import get_field
+    from tpusnark_torch.utils.hash_to_field import COMMITMENT_DST, hash_to_field
+
+    curve, cfg = "bn254", get_curve("bn254")
+    p, fr = cfg.host.R, get_field(cfg.fr_spec)
+    times = {}
+    t0 = time.perf_counter()
+    cs, assign = wide_circuit(LOG2_CONSTRAINTS, p, commit=True)
+    times["compile"] = time.perf_counter() - t0
+    rng = random.Random(SEED + 2)
+    t0 = time.perf_counter()
+    pk, vk = setup(cs, rng=lambda: rng.randrange(1, p), device=dev, curve=curve)
+    times["setup"] = time.perf_counter() - t0
+    # the solve phase alone, with the prover's BSB22 override
+    overrides, _, _ = bsb22_prover_state(cs, pk)
+    t0 = time.perf_counter()
+    want = solve(cs, assign, hint_overrides=overrides)
+    times["host_solve"] = time.perf_counter() - t0
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    w, _, ints = solve_any(cs, assign, cfg.fr_spec, hint_overrides=overrides, device=dev)
+    _sync(torch, dev)
+    times["device_solve_first"] = time.perf_counter() - t0
+    solve_launches = dict(kernels.LAUNCHES)
+    if ints is not None:
+        fail("the wide circuit took the host solver")
+    n_bad = sum(a != b for a, b in zip(fr.decode(w), want))
+    if n_bad:
+        fail(f"the device solver differs from the host solver on {n_bad} wires of the 2^{LOG2_CONSTRAINTS} wide circuit")
+    proofs, phases, launches = {}, {}, {}
+    for branch, config in (("device", None), ("host", ProverConfig().with_accelerator("host"))):
+        prng = random.Random(SEED + 3)
+        phases[branch] = {}
+        kernels.reset_launches()  # the path: one prove
+        t0 = time.perf_counter()
+        proofs[branch] = prove(
+            cs, pk, assign, rng=lambda: prng.randrange(p), config=config, timings=phases[branch], device=dev
+        )
+        phases[branch]["prove"] = time.perf_counter() - t0
+        launches[branch] = dict(kernels.LAUNCHES)
+    if _proof_image(proofs["device"]) != _proof_image(proofs["host"]):
+        fail("the device and host branches gave different proofs of the wide circuit")
+    proof = proofs["device"]
+    if len(proof.commitments) != 1 or proof.commitments[0] is None or proof.commitment_pok is None:
+        fail("the wide circuit's proof carries no commitment")
+    # the branches the shape rule gives: the host branch's prove launches B1
+    # and B2 over fr as the chain's does, the device branch's solve many more
+    fr_name = cfg.fr_spec.name
+    host_b = (launches["host"][f"mul[{fr_name}]"], launches["host"][f"from_mont[{fr_name}]"])
+    dev_b = (launches["device"][f"mul[{fr_name}]"], launches["device"][f"from_mont[{fr_name}]"])
+    if dev.type == "cuda" and (host_b != (B1_PER_PROVE, B2_PER_PROVE) or dev_b[0] <= B1_PER_PROVE):
+        fail(f"wide prove: B1/B2 over fr {dev_b} on the device branch, {host_b} on the host branch")
+    idle = [k for k in kernels.instances(curve) if k not in setup_only | off_path and launches["device"][k] <= 0]
+    if dev.type == "cuda" and idle:
+        fail(f"kernels of the prove path never launched by the wide device-branch prove: {idle}")
+    pending = submit_verdicts(pool, curve, proof, vk, [assign["y"]], [(assign["y"] + 1) % p])
+    say(
+        f"[8 wide] bn254: wide circuit with a BSB22 commitment, {len(cs.constraints)} constraints, {cs.n_wires} "
+        f"wires, {len(cs.compute_levels())} levels: the device solver's W equals the host solver's; the device and "
+        f"host branches' proofs are equal point for point, commitment and PoK included | "
+        + " ".join(f"{k}={v:.4f}s" for k, v in times.items())
+    )
+    for branch in ("device", "host"):
+        say(f"[8 wide] bn254 {branch} branch: " + " ".join(f"{k}={v:.4f}s" for k, v in phases[branch].items()))
+    say(f"[8 wide] bn254 device solve's launches over fr: {_fmt(solver_launches(curve, solve_launches))}")
+    say(
+        f"[8 wide] bn254 prove launches over fr: device branch {_fmt(solver_launches(curve, launches['device']))}; "
+        f"host branch {_fmt(solver_launches(curve, launches['host']))}"
+    )
+    # tests/test_commit.py's circuit on the card
+    cs, x, pub = commit_circuit(p), 3, 11
+    rng = random.Random(SEED + 4)
+    pk, vk = setup(cs, rng=lambda: rng.randrange(1, p), device=dev, curve=curve)
+    C = pedersen_commit(pk.commitment_keys[0], [x])
+    (c,) = hash_to_field(g1_raw(C) + pub.to_bytes(32, "big"), COMMITMENT_DST, p)
+    y = (x**3 + c * x + 5 + pub) % p
+    prng = random.Random(SEED + 5)
+    proof = prove(cs, pk, {"x": x, "pub": pub, "y": y}, rng=lambda: prng.randrange(p), device=dev)
+    if proof.commitments != [C]:
+        fail("the commit circuit's proof carries another commitment than the prover's")
+    pending += submit_verdicts(pool, curve, proof, vk, [pub, y], [pub, (y + 1) % p])
+    say(f"[8 commit] bn254: tests/test_commit.py's circuit proved on {dev.type}")
+    return solve_launches, launches["device"], pending
+
+
 # ---------------------------------------------------------------- main
 def main() -> None:
     try:
@@ -1367,6 +1618,7 @@ def run() -> None:
     import numpy as np
 
     from tpusnark_torch import kernels
+    from tpusnark_torch.constraint.solver_torch import prefer_device
     from tpusnark_torch.curves.config import get_curve
 
     pool = start_workers()
@@ -1384,12 +1636,23 @@ def run() -> None:
         setup_launches, launches, pending[curve] = phase_groth16(torch, dev, curve, pool, cs, assign, compile_s)
         runs[curve] = (setup_launches, launches)
         check_launches(curve, setup_only, off_path, setup_launches, launches)
+        if prefer_device(cs):  # decided (and cached on cs) by the prove
+            fail(f"{curve}: the shape rule sends the chain to the device solver")
     missing = sorted(set(kernels.LAUNCHES) - set(checks))
     if missing:
         fail(f"kernels not checked: {missing}")
     phase_ntt_large(torch, dev, np_rng)
+    wide_solve = {curve: phase_wide_solve(torch, dev, curve) for curve in CURVES}
+    _, wide_prove_launches, pending["wide"] = phase_wide_prove(
+        torch, dev, pool, setup_only, off_path
+    )
+    say(
+        "[8 branch] the chain's proves took the host solver on every curve (phase 6: B1 and B2 over fr "
+        f"{B1_PER_PROVE} and {B2_PER_PROVE} times), the wide circuit's default prove the device solver"
+    )
     for curve in CURVES:
         collect_verdicts(curve, LOG2_CONSTRAINTS, pending[curve])
+    collect_verdicts("bn254", f"{LOG2_CONSTRAINTS} wide and commit", pending["wide"])
     stop_workers()
     for mod in ("jax", "tpusnark"):
         if mod in sys.modules:
@@ -1419,11 +1682,13 @@ def run() -> None:
                     bound_ms=c["bound_ms"],
                     bound_by=c["bound_by"],
                     library_ms=None,  # no PyTorch call computes a multi-word modular product
+                    launches_wide_solve=wide_solve[curve][name],
+                    **({"launches_wide_prove": wide_prove_launches[name]} if curve == "bn254" else {}),
                     **{k: c[k] for k in B1_B2_KEYS if k in c},
                     **({"absorbs": ABSORBS[op]} if (op := name.split("[")[0]) in ABSORBS else {}),
                 )
             )
-    say(f"[8 done] {time.perf_counter() - t_start:.1f} s in all")
+    say(f"[9 done] {time.perf_counter() - t_start:.1f} s in all")
     say(json.dumps({"kernels": rows}))
     say(card)
     say(

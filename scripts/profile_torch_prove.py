@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
 """Phase times and device busy share of the port's Groth16 prove on one GPU.
 
-    python3 scripts/profile_torch_prove.py [--curves bw6-761,bls12-377] [--proves 4]
+    python3 scripts/profile_torch_prove.py [--curves bw6-761,bls12-377] [--proves 4] [--circuit wide]
 
-Per curve, on chip_smoke.py's 2^17 multiplication chain: one setup, then
-`--proves` proves with phase timing (the first builds the NTT tables and the
-A/B/C index arrays, the others are warm), then one warm prove under
-``torch.profiler``. From the profile it prints the device time by kernel, the
+Per curve, on chip_smoke.py's 2^17 multiplication chain (or, with
+``--circuit wide``, its wide circuit, with a BSB22 commitment over BN254):
+one setup, then `--proves` proves with phase timing (the first builds the
+NTT tables and the A/B/C index arrays, the others are warm), then one warm
+prove under ``torch.profiler``. On the wide circuit each prove runs twice in
+turns, through the default device branch and with accelerator="host" (the
+host witness solver), and one of each is profiled. From the profile it prints the device time by kernel, the
 device busy time (kernel intervals merged, so that overlapping kernels count
 once) and the idle share of that prove's wall time. Every line of numbers
 stands after the card's name and power limit. Needs a CUDA device; imports
@@ -80,16 +83,27 @@ def main() -> None:
     ap.add_argument("--curves", default="bls24-315,bls24-317,bw6-761,bw6-633,bls12-377,bls12-381,bn254")
     ap.add_argument("--proves", type=int, default=4)
     ap.add_argument("--log2n", type=int, default=chip_smoke.LOG2_CONSTRAINTS)
+    ap.add_argument("--circuit", choices=("chain", "wide"), default="chain")
     args = ap.parse_args()
     torch, card = chip_smoke.phase_card()
     from tpusnark_torch import kernels
+    from tpusnark_torch.backend.config import ProverConfig
     from tpusnark_torch.backend.groth16 import prove, setup
     from tpusnark_torch.curves.config import get_curve
 
     chip_smoke.phase_build()
     dev = torch.device("cuda")
+    # the solver branches each prove runs through, in turns
+    branches = {"": None} if args.circuit == "chain" else {" device": None, " host": ProverConfig().with_accelerator("host")}
     for curve in args.curves.split(","):
-        cs, assign = chip_smoke.mul_chain(args.log2n, get_curve(curve).host.R)
+        p = get_curve(curve).host.R
+        t0 = time.perf_counter()
+        if args.circuit == "chain":
+            cs, assign = chip_smoke.mul_chain(args.log2n, p)
+        else:
+            cs, assign = chip_smoke.wide_circuit(args.log2n, p, commit=curve == "bn254")
+        print(f"[{card}] {curve} {args.circuit} circuit: {len(cs.constraints)} constraints, compiled in "
+              f"{time.perf_counter() - t0:.4f} s", flush=True)
         rng = random.Random(chip_smoke.SEED)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -97,31 +111,35 @@ def main() -> None:
         print(f"[{card}] {curve} setup {time.perf_counter() - t0:.4f} s", flush=True)
         prng = random.Random(chip_smoke.SEED + 1)
 
-        def prove_once(timings=None):
-            return prove(cs, pk, assign, rng=lambda: prng.randrange(cs.modulus), timings=timings, device=dev)
+        def prove_once(timings=None, config=None):
+            return prove(
+                cs, pk, assign, rng=lambda: prng.randrange(cs.modulus), config=config, timings=timings, device=dev
+            )
 
         for i in range(args.proves):
-            phases: dict = {}
-            t0 = time.perf_counter()
-            prove_once(phases)
-            total = time.perf_counter() - t0
+            for label, config in branches.items():
+                phases: dict = {}
+                t0 = time.perf_counter()
+                prove_once(phases, config)
+                total = time.perf_counter() - t0
+                print(
+                    f"[{card}] {curve}{label} prove {i + 1} total={total:.4f} "
+                    + " ".join(f"{k}={v:.4f}" for k, v in phases.items()),
+                    flush=True,
+                )
+        for label, config in branches.items():
+            kernels.reset_launches()
+            wall, busy, by_kernel = profile_one(torch, lambda: prove_once(None, config))
+            launched = sum(kernels.LAUNCHES.values())
+            peak = torch.cuda.max_memory_allocated() / 1e9
             print(
-                f"[{card}] {curve} prove {i + 1} total={total:.4f} "
-                + " ".join(f"{k}={v:.4f}" for k, v in phases.items()),
+                f"[{card}] {curve}{label} profiled prove wall={wall:.4f} s device busy={busy:.4f} s "
+                f"idle share={1 - busy / wall:.4f} device events={sum(n for n, _ in by_kernel.values())} "
+                f"port kernel launches={launched} peak memory={peak:.3f} GB",
                 flush=True,
             )
-        kernels.reset_launches()
-        wall, busy, by_kernel = profile_one(torch, prove_once)
-        launched = sum(kernels.LAUNCHES.values())
-        peak = torch.cuda.max_memory_allocated() / 1e9
-        print(
-            f"[{card}] {curve} profiled prove wall={wall:.4f} s device busy={busy:.4f} s "
-            f"idle share={1 - busy / wall:.4f} device events={sum(n for n, _ in by_kernel.values())} "
-            f"port kernel launches={launched} peak memory={peak:.3f} GB",
-            flush=True,
-        )
-        for name, (n, ms) in sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:14]:
-            print(f"[{card}] {curve}   {name:60s} launches={n:6d} ms={ms:.3f}", flush=True)
+            for name, (n, ms) in sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:14]:
+                print(f"[{card}] {curve}{label}   {name:60s} launches={n:6d} ms={ms:.3f}", flush=True)
         del pk
         torch.cuda.empty_cache()
 

@@ -33,6 +33,7 @@ from tpusnark_torch.backend.groth16.keys import device_tables
 from tpusnark_torch.constraint.solver import solve as tsolve
 from tpusnark_torch import kernels
 from tpusnark_torch.backend.groth16.keys import ported_curve
+from tpusnark_torch.constraint import solver_torch as st
 from tpusnark_torch.constraint.eval_torch import ABCEvaluator, abc_evaluator
 from tpusnark_torch.convert import pk_tables, to_torch
 from tpusnark_torch.fields.tfield import get_field, n_words
@@ -186,7 +187,10 @@ def test_proof_matches_tpusnark_and_verifies(keys):
 
 
 def test_commitment_circuits_are_refused(keys):
-    """BSB22 commitments are not ported: setup and prove refuse them."""
+    """BSB22 commitments are BN254-only, as in tpusnark: over BN254 a
+    commitment circuit sets up, proves and verifies (tests/
+    test_torch_groth16_commit.py holds it against tpusnark); over the BLS12
+    curves setup and prove refuse it, as tpusnark's setup does."""
     cfg, _, pk_t, _, _, _ = keys
     b = TBuilder(cfg.host.R)
     x = b.secret("x")
@@ -194,10 +198,22 @@ def test_commitment_circuits_are_refused(keys):
     c = b.commit(x)
     b.assert_is_equal(b.add(b.mul(x, x), c, 0), b.add(y, c))
     cs = b.compile()
-    with pytest.raises(NotImplementedError):
+    if cfg.name == "bn254":
+        pk, vk = tg16.setup(cs, rng=seeded(1, cfg.host.R), device="cpu", curve=cfg.name)
+        proof = tg16.prove(cs, pk, {"x": 2, "y": 4}, rng=seeded(2, cfg.host.R, lo=0), device="cpu")
+        assert len(proof.commitments) == 1 and proof.commitment_pok is not None
+        assert tg16.verify(proof, vk, [4]) and not tg16.verify(proof, vk, [5])
+        return
+    with pytest.raises(NotImplementedError, match="BN254-only"):
         tg16.setup(cs, rng=seeded(1, cfg.host.R), device="cpu", curve=cfg.name)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="BN254-only"):
         tg16.prove(cs, pk_t, {"x": 2, "y": 4}, device="cpu")
+    jcs = Builder(cfg.host.R)
+    jx = jcs.secret("x")
+    jc = jcs.commit(jx)
+    jcs.assert_is_equal(jcs.add(jcs.mul(jx, jx), jc, 0), jcs.add(jcs.public("y"), jc))
+    with pytest.raises(NotImplementedError, match="BN254-only"):
+        jg16.setup(jcs.compile(), rng=seeded(1, cfg.host.R), use_device=False, curve=cfg.name)
 
 
 @pytest.mark.parametrize("curve", ("bw6-633", "bls24-315"))
@@ -233,17 +249,30 @@ def test_entry_points_run_on_the_card_unless_the_caller_names_the_cpu(curve):
 
 
 def test_layer_entry_points_run_on_the_card_unless_the_caller_names_the_cpu():
-    """NTT, get_ntt, ABCEvaluator and abc_evaluator default to the card, as
-    setup and prove do: with no card they raise and do not fall back to the
-    plain versions; named, the CPU runs them."""
-    for fn in (NTT.__init__, get_ntt, ABCEvaluator.__init__, abc_evaluator):
+    """NTT, get_ntt, ABCEvaluator, abc_evaluator and the device solver's
+    LevelSolver, get_level_solver, solve_torch(_ints) and solve_any default
+    to the card, as setup and prove do: with no card they raise and do not
+    fall back to the plain versions (nor, for solve_any, to the host
+    solver); named, the CPU runs them."""
+    solver_fns = (st.LevelSolver.__init__, st.get_level_solver, st.solve_torch, st.solve_torch_ints, st.solve_any)
+    for fn in (NTT.__init__, get_ntt, ABCEvaluator.__init__, abc_evaluator) + solver_fns:
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     spec = get_curve("bn254").fr_spec
     cs = cubic_circuit(get_curve("bn254").host.R, TBuilder)
     fr = get_field(spec)
     assert get_ntt(spec, 8, "cpu").device.type == "cpu" and abc_evaluator(cs, fr, "cpu").device.type == "cpu"
+    assert st.get_level_solver(cs, spec, "cpu").device.type == "cpu"
     if torch.cuda.is_available():
         pytest.skip("this machine has a card: the default runs there")
-    for make in (lambda: NTT(spec, 8), lambda: get_ntt(spec, 8), lambda: ABCEvaluator(cs, fr), lambda: abc_evaluator(cs, fr)):
+    for make in (
+        lambda: NTT(spec, 8),
+        lambda: get_ntt(spec, 8),
+        lambda: ABCEvaluator(cs, fr),
+        lambda: abc_evaluator(cs, fr),
+        lambda: st.LevelSolver(cs, fr),
+        lambda: st.get_level_solver(cs, spec),
+        lambda: st.solve_torch(cs, ASSIGN, spec),
+        lambda: st.solve_any(cs, ASSIGN, spec),
+    ):
         with pytest.raises(RuntimeError, match="no CUDA card"):
             make()

@@ -386,8 +386,61 @@ def test_bw6761_verifier_refuses_malformed_proofs_before_any_pairing():
 
 
 def test_commitment_sections_are_refused_by_the_port_verifier():
+    """A vk with a commitment section and a proof without one: the port's
+    verifier gives tpusnark's verdict (the same error)."""
     proof, vk, pubs = toy_proof("bn254", tkeys)
     vk.public_and_commitment_committed = [[1]]
     vk.k = vk.k + [vk.k[0]]
-    with pytest.raises(NotImplementedError, match="BSB22"):
-        tverify.verify(proof, vk, pubs)
+    errors = []
+    for mod in (tverify, jverify):
+        with pytest.raises(mod.InvalidProofError, match="BSB22") as err:
+            mod.verify(proof, vk, pubs)
+        errors.append(str(err.value))
+    assert errors[0] == errors[1]
+
+
+def code_without_docstrings(mod):
+    """code_of a module with every docstring dropped: the copies cite the
+    reference's sources under another root."""
+    tree = ast.parse(inspect.getsource(mod))
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if isinstance(body, list) and body and isinstance(body[0], ast.Expr) and isinstance(body[0].value, ast.Constant):
+            del body[0]
+    return ast.dump(tree)
+
+
+@pytest.mark.parametrize("name", ("utils.hash_to_field", "curves.pedersen", "curves.marshal"))
+def test_bsb22_host_modules_are_tpusnark_code(name):
+    """The BSB22 copies (hash-to-field, Pedersen, point encoding) are
+    tpusnark's code; their values agree on seeded inputs."""
+    ours = import_module(f"tpusnark_torch.{name}")
+    theirs = import_module(f"tpusnark.{name}")
+    assert code_without_docstrings(ours) == code_without_docstrings(theirs)
+    host = tcurves.get_curve("bn254").host
+    pts = [host.G1.mul(host.G1.generator(), k) for k in (5, 77, 123456789)] + [None]
+    if name == "utils.hash_to_field":
+        for msg, count in ((b"", 1), (b"abc" * 40, 3)):
+            got = ours.hash_to_field(msg, ours.COMMITMENT_DST, host.R, count)
+            assert got == theirs.hash_to_field(msg, theirs.COMMITMENT_DST, host.R, count)
+        assert ours.expand_message_xmd(b"m", b"d", 200) == theirs.expand_message_xmd(b"m", b"d", 200)
+    elif name == "curves.marshal":
+        for pt in pts:
+            assert ours.g1_raw(pt) == theirs.g1_raw(pt) and ours.g1_compress(pt) == theirs.g1_compress(pt)
+            assert ours.g1_decode(theirs.g1_compress(pt)) == theirs.g1_decode(ours.g1_compress(pt)) == (pt, 32)
+        q = host.G2.mul(host.G2.generator(), 99)
+        assert ours.g2_compress(q) == theirs.g2_compress(q) and ours.g2_raw(q) == theirs.g2_raw(q)
+    else:
+        rng_t, rng_j = random.Random(5), random.Random(5)
+        pks_t, vk_t = ours.pedersen_setup([pts[:2], pts[2:]], lambda: rng_t.randrange(1, host.R))
+        pks_j, vk_j = theirs.pedersen_setup([pts[:2], pts[2:]], lambda: rng_j.randrange(1, host.R))
+        assert [(k.basis, k.basis_exp_sigma) for k in pks_t] == [(k.basis, k.basis_exp_sigma) for k in pks_j]
+        assert (vk_t.g2, vk_t.g2_sigma_neg) == (vk_j.g2, vk_j.g2_sigma_neg)
+        vals = [[3, 4], [5, 6]]
+        coms = [ours.pedersen_commit(k, v) for k, v in zip(pks_t, vals)]
+        assert coms == [theirs.pedersen_commit(k, v) for k, v in zip(pks_j, vals)]
+        pok = ours.pedersen_batch_prove(pks_t, vals, b"seed")
+        assert pok == theirs.pedersen_batch_prove(pks_j, vals, b"seed")
+        folded = ours.pedersen_fold_commitments(coms, b"seed")
+        assert folded == theirs.pedersen_fold_commitments(coms, b"seed")
+        assert vk_t.verify(folded, pok) and not vk_t.verify(folded, coms[0])

@@ -38,7 +38,8 @@ IMPORT_ALL = BLOCK + textwrap.dedent(
     for name in ("backend.groth16.prove", "backend.groth16.verify", "backend.groth16.bls381",
                  "curves.ref", "curves.bls12381", "curves.bls12377", "curves.bw6761",
                  "curves.tower", "curves.bls24", "curves.bls24315", "curves.bls24317", "curves.bw6633",
-                 "constraint.solver", "frontend.builder", "fields.spec", "poly.domain"):
+                 "constraint.solver", "constraint.solver_torch", "curves.pedersen", "curves.marshal",
+                 "utils.hash_to_field", "frontend.builder", "fields.spec", "poly.domain"):
         assert "tpusnark_torch." + name in names, name
     assert "tpusnark_torch._host" not in names
     assert sys.modules["jax"] is None and sys.modules["tpusnark"] is None

@@ -9,8 +9,11 @@ dataclass with `with_*` helpers returning updated copies:
     proof = groth16.prove(cs, pk, w, config=cfg)
 
 Provers keep accepting bare kwargs (`rng=`) for the common cases; `config=`
-is the structured superset. The PLONK and verifier options of tpusnark's
-module come with the PLONK port.
+is the structured superset. `accelerator` mirrors gnark's
+`WithIcicleAcceleration` (gnark/backend/backend.go:132): "gpu" runs the
+device path (the witness solver on the card where the circuit's level shape
+favours it), "host" pins the host solver, as tpusnark's "host" does. The
+PLONK and verifier options of tpusnark's module come with the PLONK port.
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass, field
 from typing import Callable
+
+ACCELERATORS = ("gpu", "host")
 
 
 @dataclass(frozen=True)
@@ -30,6 +35,8 @@ class ProverConfig:
     # prover-side hint overrides, e.g. BSB22 placeholder -> real commit
     # (gnark solver.OverrideHint; reference icicle.go:152-187)
     hint_overrides: dict = field(default_factory=dict)
+    # "gpu" = the device path; "host" = the host witness solver
+    accelerator: str = "gpu"
     # resolve api.Println entries during solving into cs.solve_logs
     solver_logs: bool = True
 
@@ -44,6 +51,13 @@ class ProverConfig:
         return dataclasses.replace(
             self, hint_overrides={**self.hint_overrides, **overrides}
         )
+
+    def with_accelerator(self, name: str) -> "ProverConfig":
+        return dataclasses.replace(self, accelerator=name)
+
+    def __post_init__(self):
+        if self.accelerator not in ACCELERATORS:
+            raise ValueError(f"accelerator {self.accelerator!r}: one of {', '.join(ACCELERATORS)}")
 
 
 def resolve(config: ProverConfig | None, rng=None) -> ProverConfig:

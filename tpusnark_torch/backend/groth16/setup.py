@@ -12,8 +12,11 @@ from them, as points of the curve's host module. Curves whose kernels are
 ported: BN254, BLS12-381, BLS12-377, the BW6 curves (whose G2 lies over Fp:
 its points are plain int pairs) and the BLS24 curves (G2 over Fp4: tpusnark
 multiplies their G2 keys on the host, one ladder a point; here they are
-lanes of the same batched multiplication). BSB22 commitments are not ported
-yet.
+lanes of the same batched multiplication). BSB22 commitments (BN254 only,
+as in tpusnark) split K as tpusnark's setup does: the commitment wires' K
+points go to the verifying key, the committed wires' become the Pedersen
+bases (lanes of the same G1 batch), and ``pedersen_setup`` draws its sigma
+after the toxic waste.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import secrets
 
 from ...constraint.system import ConstraintSystem
 from ...curves.batch_mul import FixedBaseMul, g1_generator_ladder, g2_generator_ladder
+from ...curves.pedersen import pedersen_setup
 from ...curves.tcurve import curve_ops, small_mul
 from ...fields.tfield import compute_device, get_field
 from ...msm.pippenger import tree_map
@@ -178,8 +182,8 @@ def setup(cs, rng=None, device="cuda", curve: str = "bn254"):
     cfg = ported_curve(curve)
     if cs.modulus != cfg.host.R:
         raise ValueError(f"circuit modulus is not {curve}'s r")
-    if cs.commitments:
-        raise NotImplementedError("BSB22 commitments are not ported yet")
+    if cs.commitments and curve != "bn254":
+        raise NotImplementedError("BSB22 commitments are BN254-only for now")
     device = compute_device(device)
     p = cfg.host.R
     rand = rng or (lambda: secrets.randbelow(p - 1) + 1)
@@ -197,7 +201,13 @@ def setup(cs, rng=None, device="cuda", curve: str = "bn254"):
     def k_at(w, coeff):
         return (beta * A[w] + alpha * B[w] + C[w]) * coeff % p
 
-    k_vk_s = [k_at(w, gamma_inv) for w in range(npub)]
+    # BSB22 split of K (tpusnark setup.py:201-224): the commitment wires are
+    # injected by the verifier, so their K goes to the vk (/gamma); the
+    # committed private wires' K become the Pedersen bases (/gamma); every
+    # other private wire's goes to pk.K (/delta)
+    cw_sorted = sorted({c.commitment_index for c in cs.commitments})
+    k_vk_s = [k_at(w, gamma_inv) for w in range(npub)] + [k_at(w, gamma_inv) for w in cw_sorted]
+    ck_s = [[k_at(w, gamma_inv) for w in cm.private_committed] for cm in cs.commitments]
     k_pk_wires = k_pk_wires_for(cs)
     k_pk_s = [k_at(w, delta_inv) for w in k_pk_wires]
     zt = (pow(t, n, p) - 1) % p
@@ -207,14 +217,17 @@ def setup(cs, rng=None, device="cuda", curve: str = "bn254"):
         ti = ti * t % p
 
     g1, g2 = curve_ops(curve)
-    # one G1 batch: [A | B | K_vk | K_pk | Z | alpha, beta, delta]
+    # one G1 batch: [A | B | K_vk | K_pk | CK... | Z | alpha, beta, delta]
     nw = cs.n_wires
+    ck_flat = [x for lst in ck_s for x in lst]
     g1_dev, g1_pts = _batch(
-        cfg, g1, g1_generator_ladder, A + B + k_vk_s + k_pk_s + z_s + [alpha, beta, delta], device
+        cfg, g1, g1_generator_ladder, A + B + k_vk_s + k_pk_s + ck_flat + z_s + [alpha, beta, delta], device
     )
     bounds = {}
     o = 0
-    for name, size in (("a", nw), ("b1", nw), ("k_vk", npub), ("k", len(k_pk_s)), ("z", n - 1)):
+    sizes = [("a", nw), ("b1", nw), ("k_vk", len(k_vk_s)), ("k", len(k_pk_s))]
+    sizes += [(("ck", j), len(lst)) for j, lst in enumerate(ck_s)] + [("z", n - 1)]
+    for name, size in sizes:
         bounds[name] = (o, o + size)
         o += size
     alpha_g1, beta_g1, delta_g1 = g1_pts[o : o + 3]
@@ -224,6 +237,16 @@ def setup(cs, rng=None, device="cuda", curve: str = "bn254"):
     def host_pts(name):
         lo, hi = bounds[name]
         return g1_pts[lo:hi]
+
+    commitment_keys, commitment_vk = [], None
+    if cs.commitments:
+        commitment_keys, commitment_vk = pedersen_setup([host_pts(("ck", j)) for j in range(len(ck_s))], rand)
+    # the verifier's committed-public index lists: committed publics stay
+    # positions into [1 | publics], committed commitment wires become npub +
+    # the ordinal of that commitment in the extended public witness
+    # (gnark GetPublicAndCommitmentCommitted, constraint/commitment.go:53)
+    cw_pos = {w: npub + i for i, w in enumerate(cw_sorted)}
+    pub_committed = [[cw_pos.get(w, w) for w in cm.public_and_commitment_committed] for cm in cs.commitments]
 
     pk = ProvingKey(
         alpha_g1=alpha_g1,
@@ -238,7 +261,7 @@ def setup(cs, rng=None, device="cuda", curve: str = "bn254"):
         z=host_pts("z"),
         domain_n=n,
         k_wires=k_pk_wires,
-        commitment_keys=[],
+        commitment_keys=commitment_keys,
         curve=curve,
     )
     vk = VerifyingKey(
@@ -249,8 +272,8 @@ def setup(cs, rng=None, device="cuda", curve: str = "bn254"):
         k=host_pts("k_vk"),
         beta_g1=beta_g1,
         delta_g1=delta_g1,
-        commitment_key=None,
-        public_and_commitment_committed=[],
+        commitment_key=commitment_vk,
+        public_and_commitment_committed=pub_committed,
     )
     tables = {name: _cols(g1_dev, *bounds[name]) for name in ("a", "b1", "k", "z")}
     tables["b2"] = _cols(g2_dev, 0, nw)

@@ -4,15 +4,17 @@ tpusnark/backend/groth16/verify.py; pairings are not performance-critical).
 Checks the Groth16 equation
     e(Ar, Bs) = e(alpha, beta) * e(kSum, gamma) * e(Krs, delta)
 as a single product of Miller loops with one shared final exponentiation,
-like the reference verifier (gnark/backend/groth16/bn254/verify.go:43-141).
-BSB22 commitment sections are refused: the port's setup and prove refuse
-circuits with commitments.
+like the reference verifier (gnark/backend/groth16/bn254/verify.go:43-141),
+with the BSB22 commitment sections over BN254.
 """
 
 from __future__ import annotations
 
 from ...curves import ref
+from ...curves.marshal import g1_raw
+from ...curves.pedersen import pedersen_fold_commitments
 from ...curves.ref import G1, G2, pairing_check
+from ...utils.hash_to_field import COMMITMENT_DST, hash_to_field
 from .keys import Proof, VerifyingKey
 
 
@@ -48,8 +50,24 @@ def verify(
     if not G2.in_subgroup(proof.bs):
         raise InvalidProofError("proof point not in G2 subgroup")
 
+    # BSB22 (gnark verify.go:76-108): recompute each commitment's challenge
+    # from the proof's commitment point and the committed public values,
+    # extend the public witness with it, then verify the folded Pedersen PoK.
     if n_com:
-        raise NotImplementedError("BSB22 commitments are not ported yet")
+        if len(proof.commitments) != n_com or proof.commitment_pok is None:
+            raise InvalidProofError("proof missing BSB22 commitment sections")
+        for i, idxs in enumerate(vk.public_and_commitment_committed):
+            C = proof.commitments[i]
+            if C is not None and not G1.on_curve(C):
+                raise InvalidProofError("commitment point not on curve")
+            msg = g1_raw(C) + b"".join(
+                int(pubs[j]).to_bytes(32, "big") for j in idxs
+            )
+            pubs.append(hash_to_field(msg, COMMITMENT_DST, p)[0])
+        seeds = b"".join(int(v).to_bytes(32, "big") for v in pubs[-n_com:])
+        folded = pedersen_fold_commitments(proof.commitments, seeds)
+        if not vk.commitment_key.verify(folded, proof.commitment_pok):
+            raise InvalidProofError("BSB22 commitment PoK verification failed")
 
     ksum = None
     for w, pt in zip(pubs, vk.k):

@@ -380,6 +380,10 @@ class Field:
         p = _bcast(self._p_words(a.device), a)
         return (a == 0).all(dim=0) | (a == p).all(dim=0)
 
+    def eq(self, a, b):
+        """a == b mod p for a, b < 2p (jfield.py:541)."""
+        return self.is_zero(self.sub(a, b))
+
     def _p_words(self, device):
         key = ("p", str(canonical_device(device)))
         c = self._consts.get(key)

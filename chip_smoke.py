@@ -68,9 +68,25 @@ Then the device witness solver and BSB22 commitments:
      tests/test_commit.py's circuit proved on the card. The port's host
      verifier must accept both proofs and reject a wrong public input (in
      the worker processes).
+Then PLONK over BN254:
+  9. bench.py's PLONK circuit (a mul/add chain, 131,059 gates, a 2^17
+     domain): an unsafe SRS of 2^17 + 3 points from a seeded tau made on
+     the card (a fixed-base multiplication), setup, one cold and two warm
+     proves with phase times (solve, lro, z, quotient, open); the launches
+     of setup and of the last warm prove, where every instance of the
+     PLONK path ran, the NTT pass kernel exactly as often as the
+     transforms and their plans fix, one strip pass over the bases and one
+     Horner an MSM, and no pointwise butterfly; the composite-key commits
+     of the prove's shapes (k = 3 and 2 polynomials of 2^17 + 2
+     coefficients at c = 13) against separate commits at c = 16 and the
+     host sum, and k = 3 over 1,024 points against the host sum; then
+     tests/test_plonk_commit.py's circuit (one BSB22 commitment) proved on
+     the card. The port's PLONK verifier must accept both proofs and reject
+     a wrong public input (in the worker processes).
 Then one JSON line with every kernel instance (with, beside the chain's
 prove launches, those of the 2^14 wide device solve and, for BN254, of the
-2^17 wide device-branch prove), the card line, and the result line. Any failure exits non-zero before the result line. Imports neither
+2^17 wide device-branch prove and of the PLONK prove and setup), the card
+line, and the result line. Any failure exits non-zero before the result line. Imports neither
 JAX nor the JAX package ``tpusnark``: the port stands on its own host layer.
 """
 
@@ -1223,10 +1239,8 @@ def collect_verdicts(curve, log2n, pending):
             fail(f"{name} rejected the port's {curve} 2^{log2n} proof")
         if ok and not expect:
             fail(f"{name} accepted the {curve} proof with a wrong public input")
-    say(
-        f"[5 verify] {curve}: proof accepted ({', '.join(verifier_names(curve))}), "
-        f"wrong public input rejected | " + " ".join(times)
-    )
+    names = ", ".join(dict.fromkeys(name for name, _, _ in pending))
+    say(f"[5 verify] {curve}: proof accepted ({names}), wrong public input rejected | " + " ".join(times))
 
 
 def phase_groth16(torch, dev, curve, pool, cs, assign, compile_s):
@@ -1604,6 +1618,251 @@ def phase_wide_prove(torch, dev, pool, setup_only, off_path):
     return solve_launches, launches["device"], pending
 
 
+# ---------------------------------------------------------------- phase 9
+# PLONK over BN254 on bench.py's PLONK circuit: a mul/add chain of
+# 2^PLONK_LOG2 - 16 steps, 2^PLONK_LOG2 - 13 gates, a 2^PLONK_LOG2 domain
+PLONK_LOG2 = 17
+PLONK_PROVES = 3  # one cold, two warm
+# NTT calls (each one launch of the pass kernel a pass of its plan) in one
+# PLONK prove without commitments: over n the three wire INTTs (one batched
+# call), the z INTT, the public-input INTT and the four coset slices (one
+# batched NTT each); over 4n the coset INTT of the quotient. Setup: the five
+# selector and three permutation INTTs over n. A BSB22 commitment adds one
+# INTT over n to the prove (its committed polynomial) and one to setup (its
+# qcp column).
+PLONK_NTT_CALLS = {"prove": {1: 7, 4: 1}, "setup": {1: 8}}
+# the MSMs of one PLONK prove: l, r, o (k = 3), z, h1-h3 (k = 3), the
+# linearized polynomial and the two opening quotients (k = 2); of setup, the
+# eight trace commitments
+PLONK_MSMS = {"prove": 5, "setup": 8}
+# the instances a PLONK prove launches over BN254 (B1, B2, add, sub over fr;
+# the NTT pass kernel; the strip passes, scan steps, Horner and the
+# pointwise add of the MSMs), and those setup launches (B1 and B2 over fr,
+# the NTT and the MSMs; the unsafe SRS's fixed-base multiplication, B5
+# pointwise, and its affine normalisation, B1 and B2 over fp)
+_PLONK_MSM_OPS = tuple(f"g1_{op}[bn254]" for op in ("strip_mixed", "strip", "scan_step", "horner", "add"))
+PLONK_OPS = {
+    "prove": ("mul[{fr}]", "from_mont[{fr}]", "add[{fr}]", "sub[{fr}]", "ntt_stages[{fr}]") + _PLONK_MSM_OPS,
+    "setup": ("mul[{fr}]", "from_mont[{fr}]", "ntt_stages[{fr}]", "g1_add_mixed[bn254]", "mul[{fp}]", "from_mont[{fp}]")
+    + _PLONK_MSM_OPS,
+}
+
+
+def plonk_chain(log2n: int, p: int):
+    """bench.py's PLONK circuit over the field of p: a chain alternating
+    acc * x and acc + x for 2^log2n - 16 steps (so that gate CSE cannot
+    collapse it), equal to the public y."""
+    from tpusnark_torch.frontend.plonk_builder import PlonkBuilder
+
+    n = (1 << log2n) - 16
+    b = PlonkBuilder(p)
+    x = b.secret("x")
+    y = b.public("y")
+    acc = x
+    for i in range(n):
+        acc = b.mul(acc, x) if i % 2 == 0 else b.add(acc, x)
+    b.assert_is_equal(acc, y)
+    xv = av = 3
+    for i in range(n):
+        av = av * xv % p if i % 2 == 0 else (av + xv) % p
+    return b.compile(), {"x": xv, "y": av}
+
+
+def plonk_commit_circuit(p):
+    """tests/test_plonk_commit.py's circuit: x^2 == y, c = Commit(x),
+    x != c, (x - c)^2 == x^2 - 2cx + c^2."""
+    from tpusnark_torch.frontend.plonk_builder import PlonkBuilder
+
+    b = PlonkBuilder(p)
+    x = b.secret("x")
+    y = b.public("y")
+    b.assert_is_equal(b.mul(x, x), y)
+    c = b.commit(x)
+    b.assert_is_different(x, c)
+    d = b.mul(b.sub(x, c), b.sub(x, c))
+    b.assert_is_equal(d, b.add(b.mul(x, x), b.mul(b._scale(c, p - 2), x), b.mul(c, c)))
+    return b.compile()
+
+
+def plonk_verdict(proof, vk, pubs):
+    """(accepted?, seconds) of the port's PLONK verifier; top level, so that
+    a worker process can run it."""
+    if HERE not in sys.path:
+        sys.path.insert(0, HERE)
+    from tpusnark_torch.backend import plonk
+
+    t0 = time.perf_counter()
+    ok = plonk.verify(proof, vk, pubs)
+    return bool(ok), time.perf_counter() - t0
+
+
+def submit_plonk_verdicts(pool, proof, vk, good, wrong):
+    return [
+        ("plonk.verify", expect, pool.apply_async(plonk_verdict, (proof, vk, pubs)))
+        for pubs, expect in ((good, True), (wrong, False))
+    ]
+
+
+def plonk_launches_expected(n: int, n_com: int, run: str) -> int:
+    """The NTT pass kernel's launches in one PLONK prove or setup over a
+    domain of n, fixed by PLONK_NTT_CALLS and the pass plans."""
+    from tpusnark_torch.fields.spec import BN254_FR
+    from tpusnark_torch.fields.tfield import n_words
+    from tpusnark_torch.poly.ntt import max_stages, pass_plan
+
+    cap = max_stages(n_words(BN254_FR))
+    calls = dict(PLONK_NTT_CALLS[run])
+    calls[1] += n_com
+    return sum(c * len(pass_plan((m * n).bit_length() - 1, cap)) for m, c in calls.items())
+
+
+def check_plonk_launches(run: str, launches: dict, n: int, n_com: int) -> None:
+    """Every instance of the PLONK path ran (setup: with its own), the NTT
+    pass kernel exactly as often as its calls fix, one strip pass over the
+    bases and one Horner an MSM, and no pointwise butterfly."""
+    from tpusnark_torch import kernels
+    from tpusnark_torch.fields.spec import BN254_FP, BN254_FR
+
+    names = {"fr": BN254_FR.name, "fp": BN254_FP.name}
+    want = [k.format(**names) for k in PLONK_OPS[run]]
+    idle = [k for k in want if launches[k] <= 0]
+    if idle:
+        fail(f"PLONK {run}: kernels of its path never launched: {idle}")
+    fr = names["fr"]
+    stray = [k for k in (f"butterfly[{fr}]", f"butterfly4[{fr}]") if launches[k]]
+    if stray:
+        fail(f"PLONK {run}: the pointwise butterflies ran: {stray}")
+    other = [k for k, v in launches.items() if v and k not in kernels.instances("bn254")]
+    if other:
+        fail(f"PLONK {run}: kernels of another curve ran: {other}")
+    ntt = launches[f"ntt_stages[{fr}]"]
+    if ntt != plonk_launches_expected(n, n_com, run):
+        fail(f"PLONK {run}: {ntt} NTT pass launches, not {plonk_launches_expected(n, n_com, run)}")
+    msms = PLONK_MSMS[run] + n_com
+    strips, horners = launches["g1_strip_mixed[bn254]"], launches["g1_horner[bn254]"]
+    if (strips, horners) != (msms, msms):
+        fail(f"PLONK {run}: {msms} MSMs took {strips} strip passes over the bases and {horners} Horners")
+
+
+def check_composite_commits(torch, dev, srs, tau: int, n: int) -> None:
+    """commit_many_dev at the prove's shapes (k = 3 and k = 2 polynomials of
+    n + 2 coefficients: c = 13, the strip path, 20 windows) against k
+    separate commit_dev calls (c = 16) and against the host sum, which the
+    SRS's discrete logs make one scalar multiplication: sum_i s_i tau^i G;
+    and k = 3 over 1,024 points (the log-scan path) against the host sum."""
+    from tpusnark_torch.curves.ref import G1, R
+    from tpusnark_torch.fields.spec import BN254_FR
+    from tpusnark_torch.fields.tfield import get_field
+    from tpusnark_torch.msm.pippenger import auto_c, auto_c_many
+    from tpusnark_torch.poly import kzg
+
+    fr = get_field(BN254_FR)
+    rng = random.Random(SEED + 20)
+    for k, m, separately in ((3, n + 2, True), (2, n + 2, True), (3, min(1024, n + 2), False)):
+        scalars = [[rng.randrange(R) for _ in range(m)] for _ in range(k)]
+        scalars[0][:3] = [0, 1, R - 1]  # a zero digit run, the smallest and the largest scalar
+        stack = fr.encode([s for row in scalars for s in row], mont=False, device=dev).view(fr.n, k, m)
+        t0 = time.perf_counter()
+        many = kzg.commit_many_dev(srs, stack)
+        many_s = time.perf_counter() - t0
+        taus = [1] * m
+        for i in range(1, m):
+            taus[i] = taus[i - 1] * tau % R
+        host = [G1.mul(G1.generator(), sum(s * t for s, t in zip(row, taus)) % R) for row in scalars]
+        if many != host:
+            fail(f"commit_many_dev (k={k}, {m} points, c={auto_c_many(m, k)}) disagrees with the host sum")
+        line = f"k={k} over {m} points at c={auto_c_many(m, k)} equals the host sum ({many_s:.4f} s)"
+        if separately:
+            t0 = time.perf_counter()
+            single = [kzg.commit_dev(srs, stack[:, i]) for i in range(k)]
+            single_s = time.perf_counter() - t0
+            if single != many:
+                fail(f"commit_many_dev (k={k}, {m} points) disagrees with {k} commit_dev calls")
+            line += f" and {k} commit_dev calls at c={auto_c(m)} ({single_s:.4f} s)"
+        say(f"[9 kzg] commit_many_dev {line}")
+
+
+def phase_plonk(torch, dev, pool):
+    """PLONK over BN254 at a 2^PLONK_LOG2 domain: an unsafe SRS from a seeded
+    tau made on the card, setup, one cold and two warm proves with phase
+    times, the launches of setup and of the last warm prove; the composite
+    commits; tests/test_plonk_commit.py's circuit proved on the card.
+    Returns (setup launches, prove launches, pending verdicts)."""
+    from tpusnark_torch import kernels
+    from tpusnark_torch.backend import plonk
+    from tpusnark_torch.backend.plonk.setup import _next_pow2
+    from tpusnark_torch.curves.ref import R
+    from tpusnark_torch.fields.spec import BN254_FR
+    from tpusnark_torch.poly import kzg
+
+    times = {}
+    t0 = time.perf_counter()
+    cs, assign = plonk_chain(PLONK_LOG2, R)
+    times["compile"] = time.perf_counter() - t0
+    n = _next_pow2(max(8, cs.n_gates))
+    if n != 1 << PLONK_LOG2:
+        fail(f"the PLONK circuit has {cs.n_gates} gates: a domain of {n}, not 2^{PLONK_LOG2}")
+    tau = random.Random(SEED + 10).randrange(2, R)
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()  # setup's path: the SRS and setup
+    t0 = time.perf_counter()
+    srs = kzg.new_srs_unsafe(n + 3, tau=tau, device=dev)
+    times["srs"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pk, vk = plonk.setup(cs, srs=srs, device=dev)
+    times["setup"] = time.perf_counter() - t0
+    setup_launches = dict(kernels.LAUNCHES)
+    if pk.domain_n != 1 << PLONK_LOG2:
+        fail(f"PLONK setup chose a domain of {pk.domain_n}")
+    if on_card:
+        check_plonk_launches("setup", setup_launches, n, 0)
+    proves = []
+    for i in range(PLONK_PROVES):
+        prng = random.Random(SEED + 11 + i)
+        phases: dict = {}
+        kernels.reset_launches()  # the main path: one prove
+        t0 = time.perf_counter()
+        proof = plonk.prove(cs, pk, assign, rng=lambda: prng.randrange(1, R), timings=phases)
+        phases["prove"] = time.perf_counter() - t0
+        proves.append(phases)
+    launches = dict(kernels.LAUNCHES)
+    if on_card:
+        check_plonk_launches("prove", launches, n, 0)
+    peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else float("nan")
+    pending = submit_plonk_verdicts(pool, proof, vk, [assign["y"]], [(assign["y"] + 1) % R])
+    say(
+        f"[9 plonk] bn254: {cs.n_gates} gates, {cs.n_wires} wires, domain 2^{PLONK_LOG2}: set up and proved | "
+        + " ".join(f"{k}={v:.4f}s" for k, v in times.items())
+        + f" | peak device memory {peak:.3f} GB"
+    )
+    for i, phases in enumerate(proves):
+        label = "cold" if i == 0 else "warm"
+        say(f"[9 plonk] prove {i + 1} ({label}): " + " ".join(f"{k}={v:.4f}s" for k, v in phases.items()))
+    for run, counts in (("setup", setup_launches), ("warm prove", launches)):
+        say(
+            f"[9 launches] PLONK {run}: "
+            + " ".join(f"{k}={v}" for k, v in counts.items() if v)
+            + f" | all port launches {sum(counts.values())}"
+        )
+    check_composite_commits(torch, dev, srs, tau, n)
+    # tests/test_plonk_commit.py's circuit on the card
+    cs = plonk_commit_circuit(R)
+    pk, vk = plonk.setup(cs, tau=SEED + 12, device=dev)
+    prng = random.Random(SEED + 13)
+    kernels.reset_launches()
+    proof = plonk.prove(cs, pk, {"x": 3, "y": 9}, rng=lambda: prng.randrange(1, R))
+    if len(proof.bsb22_commitments) != 1 or proof.bsb22_commitments[0] is None:
+        fail("the PLONK commit circuit's proof carries no BSB22 commitment")
+    ntt = kernels.LAUNCHES[f"ntt_stages[{BN254_FR.name}]"]
+    if on_card and ntt != plonk_launches_expected(pk.domain_n, 1, "prove"):
+        fail(f"PLONK commit prove: {ntt} NTT pass launches, not {plonk_launches_expected(pk.domain_n, 1, 'prove')}")
+    pending += submit_plonk_verdicts(pool, proof, vk, [9], [10])
+    say(f"[9 commit] bn254: tests/test_plonk_commit.py's circuit (domain {pk.domain_n}) proved on {dev.type}")
+    return setup_launches, launches, pending
+
+
 # ---------------------------------------------------------------- main
 def main() -> None:
     try:
@@ -1650,9 +1909,11 @@ def run() -> None:
         "[8 branch] the chain's proves took the host solver on every curve (phase 6: B1 and B2 over fr "
         f"{B1_PER_PROVE} and {B2_PER_PROVE} times), the wide circuit's default prove the device solver"
     )
+    plonk_setup_launches, plonk_launches, pending["plonk"] = phase_plonk(torch, dev, pool)
     for curve in CURVES:
         collect_verdicts(curve, LOG2_CONSTRAINTS, pending[curve])
     collect_verdicts("bn254", f"{LOG2_CONSTRAINTS} wide and commit", pending["wide"])
+    collect_verdicts("bn254", f"{PLONK_LOG2} PLONK and PLONK commit", pending["plonk"])
     stop_workers()
     for mod in ("jax", "tpusnark"):
         if mod in sys.modules:
@@ -1683,12 +1944,20 @@ def run() -> None:
                     bound_by=c["bound_by"],
                     library_ms=None,  # no PyTorch call computes a multi-word modular product
                     launches_wide_solve=wide_solve[curve][name],
-                    **({"launches_wide_prove": wide_prove_launches[name]} if curve == "bn254" else {}),
+                    **(
+                        {
+                            "launches_wide_prove": wide_prove_launches[name],
+                            "launches_plonk_prove": plonk_launches[name],
+                            "launches_plonk_setup": plonk_setup_launches[name],
+                        }
+                        if curve == "bn254"
+                        else {}
+                    ),
                     **{k: c[k] for k in B1_B2_KEYS if k in c},
                     **({"absorbs": ABSORBS[op]} if (op := name.split("[")[0]) in ABSORBS else {}),
                 )
             )
-    say(f"[9 done] {time.perf_counter() - t_start:.1f} s in all")
+    say(f"[10 done] {time.perf_counter() - t_start:.1f} s in all")
     say(json.dumps({"kernels": rows}))
     say(card)
     say(

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Phase times and device busy share of the port's Groth16 prove on one GPU.
+"""Phase times and device busy share of the port's Groth16 or PLONK prove on one GPU.
 
-    python3 scripts/profile_torch_prove.py [--curves bw6-761,bls12-377] [--proves 4] [--circuit wide]
+    python3 scripts/profile_torch_prove.py [--curves bw6-761,bls12-377] [--proves 4] [--circuit wide|plonk]
 
 Per curve, on chip_smoke.py's 2^17 multiplication chain (or, with
 ``--circuit wide``, its wide circuit, with a BSB22 commitment over BN254):
@@ -9,7 +9,10 @@ one setup, then `--proves` proves with phase timing (the first builds the
 NTT tables and the A/B/C index arrays, the others are warm), then one warm
 prove under ``torch.profiler``. On the wide circuit each prove runs twice in
 turns, through the default device branch and with accelerator="host" (the
-host witness solver), and one of each is profiled. From the profile it prints the device time by kernel, the
+host witness solver), and one of each is profiled. With ``--circuit plonk``
+the prove is PLONK over BN254 on chip_smoke.py's PLONK circuit (bench.py's
+mul/add chain, a 2^17 domain), its keys from an unsafe SRS made on the card
+from a seeded tau. From the profile it prints the device time by kernel, the
 device busy time (kernel intervals merged, so that overlapping kernels count
 once) and the idle share of that prove's wall time. Every line of numbers
 stands after the card's name and power limit. Needs a CUDA device; imports
@@ -83,35 +86,49 @@ def main() -> None:
     ap.add_argument("--curves", default="bls24-315,bls24-317,bw6-761,bw6-633,bls12-377,bls12-381,bn254")
     ap.add_argument("--proves", type=int, default=4)
     ap.add_argument("--log2n", type=int, default=chip_smoke.LOG2_CONSTRAINTS)
-    ap.add_argument("--circuit", choices=("chain", "wide"), default="chain")
+    ap.add_argument("--circuit", choices=("chain", "wide", "plonk"), default="chain")
     args = ap.parse_args()
     torch, card = chip_smoke.phase_card()
     from tpusnark_torch import kernels
     from tpusnark_torch.backend.config import ProverConfig
+    from tpusnark_torch.backend import plonk
     from tpusnark_torch.backend.groth16 import prove, setup
     from tpusnark_torch.curves.config import get_curve
+    from tpusnark_torch.poly import kzg
 
     chip_smoke.phase_build()
     dev = torch.device("cuda")
     # the solver branches each prove runs through, in turns
-    branches = {"": None} if args.circuit == "chain" else {" device": None, " host": ProverConfig().with_accelerator("host")}
+    branches = {"": None} if args.circuit != "wide" else {" device": None, " host": ProverConfig().with_accelerator("host")}
+    if args.circuit == "plonk":
+        args.curves = "bn254"  # PLONK is BN254-only, as in tpusnark
     for curve in args.curves.split(","):
         p = get_curve(curve).host.R
         t0 = time.perf_counter()
         if args.circuit == "chain":
             cs, assign = chip_smoke.mul_chain(args.log2n, p)
+        elif args.circuit == "plonk":
+            cs, assign = chip_smoke.plonk_chain(args.log2n, p)
         else:
             cs, assign = chip_smoke.wide_circuit(args.log2n, p, commit=curve == "bn254")
-        print(f"[{card}] {curve} {args.circuit} circuit: {len(cs.constraints)} constraints, compiled in "
+        size = f"{cs.n_gates} gates" if args.circuit == "plonk" else f"{len(cs.constraints)} constraints"
+        print(f"[{card}] {curve} {args.circuit} circuit: {size}, compiled in "
               f"{time.perf_counter() - t0:.4f} s", flush=True)
         rng = random.Random(chip_smoke.SEED)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        pk, _ = setup(cs, rng=lambda: rng.randrange(1, cs.modulus), device=dev, curve=curve)
+        if args.circuit == "plonk":
+            n = 1 << (cs.n_gates - 1).bit_length()
+            srs = kzg.new_srs_unsafe(n + 3, tau=rng.randrange(2, p), device=dev)
+            pk, _ = plonk.setup(cs, srs=srs, device=dev)
+        else:
+            pk, _ = setup(cs, rng=lambda: rng.randrange(1, cs.modulus), device=dev, curve=curve)
         print(f"[{card}] {curve} setup {time.perf_counter() - t0:.4f} s", flush=True)
         prng = random.Random(chip_smoke.SEED + 1)
 
         def prove_once(timings=None, config=None):
+            if args.circuit == "plonk":
+                return plonk.prove(cs, pk, assign, rng=lambda: prng.randrange(1, p), timings=timings)
             return prove(
                 cs, pk, assign, rng=lambda: prng.randrange(cs.modulus), config=config, timings=timings, device=dev
             )

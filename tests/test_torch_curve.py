@@ -4,8 +4,10 @@ CPU) against tpusnark's CurveOps (JAX on the CPU) and the curve's host module
 with 3b = 12, G2 with 3b' = (12, 12) over u^2 = -1; tpusnark.curves.bls12377
 for BLS12-377: G1 with 3b = 3, G2 with 3b' = (0, -3/5) over u^2 = -5;
 tpusnark.curves.bw6761 for BW6-761: 24-word coordinates, G1 with 3b = -3 and
-G2 over Fp itself with 3b = 12), on the same seeded points. Exact: projective outputs are compared with tpusnark's coordinate
-by coordinate as ints mod p, and their affine values with the host module."""
+G2 over Fp itself with 3b = 12), on the same seeded points; and BW6-633,
+BLS24-315 and BLS24-317 (G2 over Fp4) against their host modules alone.
+Exact: projective outputs are compared with tpusnark's coordinate by
+coordinate as ints mod p, and their affine values with the host module."""
 
 import numpy as np
 import pytest
@@ -25,6 +27,8 @@ from tpusnark_torch.curves.encoding import (
     g1_to_device,
     g2_from_device_proj,
     g2_to_device,
+    g4_from_device_proj,
+    g4_to_device,
 )
 from tpusnark_torch.curves.tcurve import curve_ops, g1_ops, g2_ops
 from tpusnark_torch.fields.tfield import get_field
@@ -211,3 +215,90 @@ def test_kernel_ops_refuse_constants_their_kernels_are_not_built_for():
         g1_ops(get_field(cfg.fp_spec), b=4, group="g2")
     bw6 = get_curve("bw6-761")
     assert g1_ops(get_field(bw6.fp_spec), b=bw6.g2_b, group="g2").group == "g2"
+
+
+# BW6-633 (G1 and G2 over a 20-word Fp) and the BLS24 curves (G2 over Fp4:
+# u^2 = -13, v^2 = u for BLS24-315; u^2 = -1, v^2 = 1 + u for BLS24-317),
+# against their host modules alone: tpusnark's JAX Fp4 ops cost ~16 s a call
+# on this CPU, and its group law over these curves is held by
+# tests/test_torch_bls24.py.
+HOST_ONLY_CASES = [(c, g) for c in ("bw6-633", "bls24-315", "bls24-317") for g in ("g1", "g2")]
+
+
+class HostCurve:
+    """One curve and group: host module, the port's ops, encoders and
+    decoders over Fp, Fp2 or Fp4 (ops.degree)."""
+
+    def __init__(self, name, group):
+        cfg = get_curve(name)
+        self.cfg, self.host = cfg, cfg.host
+        self.G = cfg.host.G2 if group == "g2" else cfg.host.G1
+        self.P, self.R = cfg.fp_spec.modulus, cfg.host.R
+        self.fp = get_field(cfg.fp_spec)
+        self.ops = curve_ops(name)[int(group == "g2")]
+        self.deg = self.ops.degree
+
+    def enc(self, pts):
+        return {1: g1_to_device, 2: g2_to_device, 4: g4_to_device}[self.deg](pts, self.fp)
+
+    def dec(self, pt):
+        if self.deg == 4:
+            return g4_from_device_proj(pt, self.fp, self.host.Fp4, self.host.Fp2)
+        if self.deg == 2:
+            return g2_from_device_proj(pt, self.fp, self.host.Fp2, self.cfg.fp2_q)
+        return g1_from_device_proj(pt, self.fp)
+
+    def comps(self, coord):
+        """A host coordinate -> its deg Fp components, as ints."""
+        if self.deg == 1:
+            return [coord]
+        if self.deg == 2:
+            return [coord.c0, coord.c1]
+        return [f.v for f2 in coord.c for f in f2.c]
+
+    def point(self, pts, lam):
+        """(lam x : lam y : lam) per point (lam in Fp scales every
+        component), (0 : lam : 0) for infinity, as the port's tensors."""
+        d = self.deg
+        one, zero = [1] + [0] * (d - 1), [0] * d
+        rows = []
+        for pt, s in zip(pts, lam):
+            x, y, z = (zero, one, zero) if pt is None else (self.comps(pt[0]), self.comps(pt[1]), one)
+            rows.append([v * s % self.P for coord in (x, y, z) for v in coord])
+        ts = [self.fp.encode(list(col)) for col in zip(*rows)]
+        coords = [ts[i * d : (i + 1) * d] for i in range(3)]
+        if d == 1:
+            return tuple(c[0] for c in coords)
+        if d == 2:
+            return tuple(tuple(c) for c in coords)
+        return tuple(((c[0], c[1]), (c[2], c[3])) for c in coords)
+
+
+def host_lanes(C, seed):
+    """As lanes(): O + Q, P + P, P + (-P), P + O, then two random pairs."""
+    rng = np.random.default_rng(seed)
+    G, g = C.G, C.G.generator()
+
+    def rand():
+        return G.mul(g, int(rng.integers(1, 2**62)) * int(rng.integers(1, 2**62)) % C.R)
+
+    a, b, c, d = rand(), rand(), rand(), rand()
+    ps = [None, a, b, c] + [rand() for _ in range(2)]
+    qs = [d, a, G.neg(b), None] + [rand() for _ in range(2)]
+    lam = [int(rng.integers(1, 2**62)) for _ in ps]
+    return ps, qs, lam
+
+
+@pytest.mark.parametrize("curve,group", HOST_ONLY_CASES)
+def test_group_law_matches_the_host_module(curve, group):
+    """add, double and the mixed add (infinity lanes of the affine operand
+    return the projective one), and the encoding round trip."""
+    C = HostCurve(curve, group)
+    ps, qs, lam = host_lanes(C, 6)
+    P, Q = C.point(ps, lam), C.point(qs, lam[::-1])
+    assert C.dec(C.ops.add(P, Q)) == [C.G.add(p, q) for p, q in zip(ps, qs)]
+    assert C.dec(C.ops.double(P)) == [C.G.double(p) for p in ps]
+    q_aff = C.enc(qs)
+    assert q_aff[2].tolist() == [q is None for q in qs]
+    assert C.dec(C.ops.add_mixed(P, q_aff)) == [C.G.add(p, q) for p, q in zip(ps, qs)]
+    assert C.dec(C.ops.from_affine(C.enc(ps))) == ps

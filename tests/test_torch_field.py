@@ -10,6 +10,8 @@ constants of csrc/mont.cuh against FieldSpec, the R of 17-limb specs across
 convert.py, and the wrappers' refusals."""
 
 import re
+import subprocess
+import sys
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -425,3 +427,24 @@ def test_kernels_refuse_fields_and_ops_without_kernels(monkeypatch):
     assert kernels.curve_of(BLS12_381_FP) == "bls12-381" and kernels.curve_of(MADE_UP) is None
     assert kernels.curve_of(BW6_633_FP) == "bw6-633" and kernels.curve_of(BLS24_317_FP) == "bls24-317"
     assert kernels.curve_of(BLS12_377_FP) == "bls12-377" and kernels.curve_of(BW6_761_FP) == "bw6-761"
+
+
+def test_broadcast_shape_equals_torch_and_imports_no_sympy():
+    """The field ops' broadcast of unequal operand shapes (a product by a
+    row broadcast over a batch, as PLONK's quotient takes it) is
+    torch.broadcast_shapes' without its first-call import of sympy, which
+    took 3.5 s of a first PLONK prove on the card's host."""
+    from tpusnark_torch.fields.tfield import broadcast_shape
+
+    for a, b in (((8, 15, 7), (8, 1, 7)), ((8, 3, 1), (8, 1, 5)), ((8, 4), (8, 4)), ((2, 1), (3, 2, 5))):
+        assert broadcast_shape(a, b) == torch.broadcast_shapes(a, b)
+    with pytest.raises(ValueError, match="do not broadcast"):
+        broadcast_shape((8, 3), (8, 4))
+    code = (
+        "import sys; import torch; from tpusnark_torch.fields.tfield import broadcast_shape; "
+        "broadcast_shape((8, 15, 7), (8, 1, 7)); print('sympy' in sys.modules)"
+    )
+    root = Path(__file__).resolve().parent.parent
+    res = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "False"

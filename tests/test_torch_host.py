@@ -38,6 +38,7 @@ import tpusnark_torch.curves.config as tcurves
 import tpusnark_torch.fields.spec as tspec
 import tpusnark_torch.frontend.builder as tbuilder
 import tpusnark_torch.poly.domain as tdomain
+from tpusnark_torch.fields.tfield import get_field
 
 torch.set_num_threads(1)  # the suite's workers fill the cores already
 
@@ -444,3 +445,121 @@ def test_bsb22_host_modules_are_tpusnark_code(name):
         folded = ours.pedersen_fold_commitments(coms, b"seed")
         assert folded == theirs.pedersen_fold_commitments(coms, b"seed")
         assert vk_t.verify(folded, pok) and not vk_t.verify(folded, coms[0])
+
+
+# ---------------------------------------------------------------- PLONK's host layer
+def plonk_circuit(mod, p):
+    """A Plonkish circuit through PlonkBuilder's arithmetic, boolean, hint and
+    BSB22 paths."""
+    b = mod.PlonkBuilder(p)
+    x, z = b.secret("x"), b.secret("z")
+    y = b.public("y")
+    cube = b.mul(x, x, x)
+    bits = b.to_binary(x, 8)
+    sel = b.select(b.is_zero(b.sub(z, 4)), b.div(cube, z), b.inverse(b.add(x, 1)))
+    c = b.commit(x, sel)
+    b.assert_is_different(x, c)
+    b.assert_is_equal(b.add(cube, x, 5, b.xor(bits[0], bits[1])), y)
+    return b.compile()
+
+
+def scs_image(cs):
+    gates = [(g.xa, g.xb, g.xc, g.qL, g.qR, g.qO, g.qM, g.qC) for g in cs.gates]
+    return dict(
+        modulus=cs.modulus,
+        coeffs=cs.coeffs,
+        gates=gates,
+        public=cs.public_names,
+        secret=cs.secret_names,
+        wires=(cs.n_wires, cs.n_public, cs.n_secret),
+        hints=[(i[1].inputs, i[1].outputs, i[1].fn.__name__) for i in cs.instructions if i[0] == "hint"],
+        order=[(i[0], i[2]) for i in cs.instructions if i[0] == "gate"],
+        commitments=[(cm.commitment_index, cm.committed) for cm in cs.commitments],
+        skip=cs.commitment_skip_rows(),
+    )
+
+
+PLONK_COPIES = ("utils.transcript", "constraint.scs", "frontend.plonk_builder", "backend.plonk.verify")
+
+
+@pytest.mark.parametrize("name", PLONK_COPIES)
+def test_plonk_host_modules_are_tpusnark_code(name):
+    """The PLONK copies (transcript, sparse constraint system, builder,
+    verifier) are tpusnark's code."""
+    ours = import_module(f"tpusnark_torch.{name}")
+    theirs = import_module(f"tpusnark.{name}")
+    assert code_without_docstrings(ours) == code_without_docstrings(theirs)
+
+
+def test_plonk_builder_scs_and_transcript_values_equal_tpusnark():
+    import tpusnark.constraint.scs as jscs
+    import tpusnark.frontend.plonk_builder as jpb
+    import tpusnark.utils.transcript as jtr
+    import tpusnark_torch.constraint.scs as tscs
+    import tpusnark_torch.frontend.plonk_builder as tpb
+    import tpusnark_torch.utils.transcript as ttr
+
+    p = tcurves.get_curve("bn254").host.R
+    ours, theirs = plonk_circuit(tpb, p), plonk_circuit(jpb, p)
+    assert scs_image(ours) == scs_image(theirs)
+    assign = {"x": 3, "z": 4, "y": 27 + 3 + 5 + 0}
+    fixed = {"bsb22_placeholder": lambda _p, ins: [12345]}
+    W = tscs.solve_scs(ours, assign, hint_overrides=fixed)
+    assert W == jscs.solve_scs(theirs, assign, hint_overrides=fixed) == tscs.solve_scs(theirs, assign, hint_overrides=fixed)
+    for mod, cs in ((tscs, ours), (jscs, theirs)):
+        with pytest.raises(mod.UnsatisfiedGateError):
+            mod.solve_scs(cs, {**assign, "y": 1}, hint_overrides=fixed)
+    assert ours.gate_arrays()[1] == theirs.gate_arrays()[1]
+    host = tcurves.get_curve("bn254").host
+    pts = [host.G1.mul(host.G1.generator(), k) for k in (3, 99)] + [None]
+
+    def challenges(mod):
+        tr = mod.Transcript(["gamma", "beta"])
+        for pt in pts:
+            tr.bind("gamma", mod.g1_bytes(pt))
+        tr.bind("beta", mod.fr_bytes(77))
+        fold = mod.kzg_fold_challenge(5, pts, [1, 2], [mod.fr_bytes(3)], p)
+        return tr.challenge_int("gamma", p), tr.challenge_int("beta", p), fold
+
+    assert challenges(ttr) == challenges(jtr)
+
+
+def test_plonk_setup_helpers_equal_tpusnark():
+    jps = import_module("tpusnark.backend.plonk.setup")
+    tps = import_module("tpusnark_torch.backend.plonk.setup")
+    import tpusnark.frontend.plonk_builder as jpb
+    import tpusnark_torch.frontend.plonk_builder as tpb
+
+    p = tcurves.get_curve("bn254").host.R
+    for n in (1, 8, 9, 1 << 17):
+        assert tps._next_pow2(n) == jps._next_pow2(n)
+    for n in (8, 16, 1 << 17):
+        assert tps.pick_cosets(n, p) == jps.pick_cosets(n, p)
+    ours, theirs = plonk_circuit(tpb, p), plonk_circuit(jpb, p)
+    n = tps._next_pow2(max(8, ours.n_gates))
+    assert tps.build_permutation(ours, n) == jps.build_permutation(theirs, n)
+    cols = tps.selector_columns(ours, n, "cpu")
+    fr = get_field(tspec.BN254_FR)
+    (_, _, _), q = theirs.gate_arrays()
+    for name, vals in q.items():
+        assert fr.decode(cols[name]) == vals + [0] * (n - theirs.n_gates), name
+
+
+def test_plonk_containers_and_config_have_tpusnark_fields():
+    jkeys_p = import_module("tpusnark.backend.plonk.keys")
+    tkeys_p = import_module("tpusnark_torch.backend.plonk.keys")
+    for name in ("PlonkVerifyingKey", "PlonkProof"):
+        ours = [(f.name, f.default) for f in dataclasses.fields(getattr(tkeys_p, name))]
+        assert ours == [(f.name, f.default) for f in dataclasses.fields(getattr(jkeys_p, name))], name
+    ours = [f.name for f in dataclasses.fields(tkeys_p.PlonkProvingKey)]
+    theirs = [f.name for f in dataclasses.fields(jkeys_p.PlonkProvingKey)]
+    # the permutation values as setup made them on the device, not host lists
+    assert ours == ["s_lag" if name == "s_evals_int" else name for name in theirs]
+    assert [f.name for f in dataclasses.fields(tconfig.ProverConfig)] == [
+        f.name for f in dataclasses.fields(jconfig.ProverConfig)
+    ]
+    for mod in (tconfig, jconfig):
+        cfg = mod.ProverConfig().with_challenge_hash("h").with_kzg_fold_hash("k")
+        assert (cfg.challenge_hash, cfg.kzg_fold_hash) == ("h", "k")
+        vcfg = mod.VerifierConfig().with_challenge_hash("h").with_kzg_fold_hash("k")
+        assert (vcfg.challenge_hash, vcfg.kzg_fold_hash) == ("h", "k")

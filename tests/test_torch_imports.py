@@ -5,6 +5,7 @@ BLS24-317), in a process where neither ``jax`` nor the JAX package
 ``tpusnark`` can be imported. chip_smoke.py exits non-zero, with no result
 line, where there is no CUDA device and where it stands alone."""
 
+import inspect
 import os
 import re
 import shutil
@@ -34,12 +35,16 @@ IMPORT_ALL = BLOCK + textwrap.dedent(
     for name in names:
         importlib.import_module(name)
     from tpusnark_torch.backend.groth16 import prove, setup, verify
+    from tpusnark_torch.backend import plonk
     import chip_smoke
     for name in ("backend.groth16.prove", "backend.groth16.verify", "backend.groth16.bls381",
                  "curves.ref", "curves.bls12381", "curves.bls12377", "curves.bw6761",
                  "curves.tower", "curves.bls24", "curves.bls24315", "curves.bls24317", "curves.bw6633",
                  "constraint.solver", "constraint.solver_torch", "curves.pedersen", "curves.marshal",
-                 "utils.hash_to_field", "frontend.builder", "fields.spec", "poly.domain"):
+                 "utils.hash_to_field", "frontend.builder", "fields.spec", "poly.domain",
+                 "utils.transcript", "constraint.scs", "frontend.plonk_builder", "poly.scan", "poly.iop",
+                 "poly.kzg", "backend.plonk.keys", "backend.plonk.setup", "backend.plonk.prove",
+                 "backend.plonk.verify"):
         assert "tpusnark_torch." + name in names, name
     assert "tpusnark_torch._host" not in names
     assert sys.modules["jax"] is None and sys.modules["tpusnark"] is None
@@ -197,6 +202,57 @@ def groth16_without_jax(curve, tmp_dir):
     assert res.returncode == 0, res.stderr
     with open(out, "rb") as f:
         return chip_smoke.restored(pickle.load(f), get_curve(curve).host)
+
+
+# PLONK setup and prove over BN254 on the CPU, seeded as tpusnark's PLONK
+# tests seed tpusnark's, pickled to `out`: the keys (their tensors on the
+# CPU), the proof and the phase names.
+PLONK = BLOCK + textwrap.dedent(
+    """
+    import pickle, random
+    from tpusnark_torch.backend import plonk
+    from tpusnark_torch.fields.spec import BN254_FR
+    from tpusnark_torch.frontend.plonk_builder import PlonkBuilder
+    P = BN254_FR.modulus
+    """
+)
+
+
+def start_plonk_without_jax(circuit, assignment, public, tau, seed, tmp_dir):
+    """Start the port's PLONK setup (SRS from `tau`), prove (rng
+    random.Random(seed).randrange(1, r)) and verify (with the public inputs
+    `public`, and a wrong one) of `circuit(PlonkBuilder, r)` in a process
+    where jax and tpusnark cannot be imported; returns a function that waits
+    for it and gives (pk, vk, proof, phase names)."""
+    import pickle
+
+    out = os.path.join(str(tmp_dir), f"plonk-{circuit.__name__}.pickle")
+    script = PLONK.format(root=ROOT) + textwrap.dedent(inspect.getsource(circuit)) + textwrap.dedent(
+        f"""
+        cs = {circuit.__name__}(PlonkBuilder, P)
+        pk, vk = plonk.setup(cs, tau={tau}, device="cpu")
+        rng, timings = random.Random({seed}), {{}}
+        proof = plonk.prove(cs, pk, {assignment!r}, rng=lambda: rng.randrange(1, P), timings=timings)
+        assert plonk.verify(proof, vk, {public!r})
+        assert not plonk.verify(proof, vk, {[v + 1 for v in public]!r})
+        assert sys.modules["jax"] is None and sys.modules["tpusnark"] is None
+        with open({out!r}, "wb") as f:
+            pickle.dump((pk, vk, proof, sorted(timings)), f)
+        """
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["OMP_NUM_THREADS"] = "1"
+    proc = subprocess.Popen(
+        [sys.executable, "-c", script], cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
+    )
+
+    def wait():
+        _, err = proc.communicate(timeout=900)
+        assert proc.returncode == 0, err
+        with open(out, "rb") as f:
+            return pickle.load(f)
+
+    return wait
 
 
 def test_the_port_and_chip_smoke_name_no_tpusnark_import():

@@ -4,9 +4,13 @@ tensors, where they are the plain versions, against what the kernels are
 specified to compute: one lane at a time, with Python control flow, as a
 kernel thread walks its strip (restart at a key boundary, add inside a run,
 a flush record per row), one position at a time for a scan step, and the host
-curve's integers for the window Horner. Over BN254, BLS12-381, BLS12-377 and
-BW6-761 and both groups. Exact: coordinates are compared word for word (the
-Horner as affine points)."""
+curve's integers for the window Horner. Over BN254, BLS12-381, BLS12-377,
+BW6-761, BW6-633 (both groups over Fp) and BLS24-315 and BLS24-317 (G2 over
+Fp4), both groups. And over BN254 G1 the composite-key MSM of KZG's batched
+commits: the strip pass at c = 13 with k = 3 polynomials against the walk,
+and a whole k = 3 MSM at c = 13 down the strip path (its threshold lowered
+to the test's size) against host sums. Exact: coordinates are compared word
+for word (the Horner and the MSM as affine points)."""
 
 import numpy as np
 import pytest
@@ -18,6 +22,8 @@ from tpusnark_torch.curves.encoding import (
     g1_to_device,
     g2_from_device_proj,
     g2_to_device,
+    g4_from_device_proj,
+    g4_to_device,
 )
 from tpusnark_torch.curves.tcurve import CurveOps, curve_ops
 from tpusnark_torch.fields.tfield import get_field
@@ -25,7 +31,8 @@ from tpusnark_torch.msm.pippenger import MSM, tree_map
 
 torch.set_num_threads(1)  # the suite's workers fill the cores already
 
-CASES = [(c, g) for c in ("bn254", "bls12-381", "bls12-377", "bw6-761") for g in ("g1", "g2")]
+CURVES = ("bn254", "bls12-381", "bls12-377", "bw6-761", "bw6-633", "bls24-315", "bls24-317")
+CASES = [(c, g) for c in CURVES for g in ("g1", "g2")]
 IDS = [f"{c}-{g}" for c, g in CASES]
 
 
@@ -46,10 +53,23 @@ def lazy_words(rng, shape, p, words):
 
 
 def coordinate(rng, ops, shape):
+    """One coordinate over Fp, Fp2 ((c0, c1)) or Fp4 (((c00, c01), (c10, c11)))."""
     f = ops.fa.f
+
+    def fp():
+        return lazy_words(rng, shape, f.modulus, f.n)
+
+    if ops.fp4:
+        return ((fp(), fp()), (fp(), fp()))
     if ops.fp2:
-        return (lazy_words(rng, shape, f.modulus, f.n), lazy_words(rng, shape, f.modulus, f.n))
-    return lazy_words(rng, shape, f.modulus, f.n)
+        return (fp(), fp())
+    return fp()
+
+
+def leaves(tree):
+    if isinstance(tree, tuple):
+        return [x for t in tree for x in leaves(t)]
+    return [tree]
 
 
 def lane(pt, *idx):
@@ -100,7 +120,7 @@ def test_strip_pass_over_bases_equals_a_lane_by_lane_walk(curve, group):
     fr = msm.fr
     n0, C, R, W = 20, 4, 6, 2
     X, Y = coordinate(rng, ops, (n0,)), coordinate(rng, ops, (n0,))
-    for a in [t for xy in (X, Y) for t in (xy if ops.fp2 else (xy,))]:
+    for a in leaves((X, Y)):
         a[:, 9] = a[:, 8]
     scalars = lazy_words(rng, (n0,), fr.modulus // 2, fr.n)
     scalars[:, 8:15] = scalars[:, 8:9]  # one key for seven records, two of them the same point
@@ -191,10 +211,12 @@ def test_horner_over_the_windows_equals_the_host_sum(curve, group, c):
     fp = ops.fa.f
     G, pts = host_points(cfg, group, W * k)
     pts[3] = None
-    enc = g2_to_device if ops.fp2 else g1_to_device
+    enc = g4_to_device if ops.fp4 else g2_to_device if ops.fp2 else g1_to_device
     wsums = tree_map(lambda a: a.reshape(a.shape[0], W, k), ops.from_affine(enc(pts, fp)))
     got = msm._horner(wsums)
-    if ops.fp2:
+    if ops.fp4:
+        got = g4_from_device_proj(got, fp, cfg.host.Fp4, cfg.host.Fp2)
+    elif ops.fp2:
         got = g2_from_device_proj(got, fp, cfg.host.Fp2, cfg.fp2_q)
     else:
         got = g1_from_device_proj(got, fp)
@@ -203,6 +225,67 @@ def test_horner_over_the_windows_equals_the_host_sum(curve, group, c):
         acc = None
         for w in range(W - 1, -1, -1):
             acc = G.add(G.mul(acc, 1 << c) if acc is not None else None, pts[w * k + j])
+        want.append(acc)
+    assert got == want
+
+
+def test_composite_strip_pass_at_c13_equals_a_lane_by_lane_walk():
+    """KZG's batched commits over BN254 G1 (k = 3 polynomials at c = 13, 20
+    windows): record j is base j % n0 under polynomial j // n0, keyed
+    poly * 2^12 + |digit| - 1; DEAD (k * 2^12) for zero digits, the infinity
+    input and the padding."""
+    cfg, ops, msm = engine("bn254", "g1", c=13)
+    rng = np.random.default_rng(35)
+    fr, k = msm.fr, 3
+    n0, C, R = 10, 4, 9
+    X, Y = coordinate(rng, ops, (n0,)), coordinate(rng, ops, (n0,))
+    scalars = lazy_words(rng, (k, n0), fr.modulus // 2, fr.n)
+    scalars[:, 1, 2] = 0
+    scalars[:, 2, :4] = scalars[:, 0, :4]  # two polynomials agree on four digits
+    inf = torch.zeros(n0, dtype=torch.bool)
+    inf[5] = True
+    skey, order, ssgn = msm._sort_records(scalars, inf, C * R)
+    assert msm.n_windows == 20 and skey.shape == (20, C * R)
+    dead = k * msm.nbuckets
+    assert int(skey.max()) == dead and bool((skey // msm.nbuckets == 2).any())
+    sent = dead + 1
+    plain = CurveOps(ops.fa)
+    zero = torch.zeros_like(X[:, :1])
+
+    def point_of(w, j):
+        i = int(order[w, j])
+        if i >= k * n0:
+            return (zero, zero)
+        x, y = lane(X, i % n0), lane(Y, i % n0)
+        return (x, plain.fa.neg(y) if bool(ssgn[w, j]) else y)
+
+    want_keys, want_pts = walk_strips(plain, skey, point_of, lane(X, 0), C, R, sent, mixed=True)
+    got_keys, got_pts = msm._strip_mixed(skey, order, ssgn, (X, Y), k, C, R, sent)
+    assert torch.equal(got_keys, want_keys)
+    assert same_words(got_pts, want_pts)
+
+
+def test_composite_msm_at_c13_down_the_strip_path_equals_host_sums():
+    """MSM.many at c = 13 with k = 3 down the path KZG's batched commits take
+    at 2^17 (strip pass, weighted_from_records, Horner over 20 windows), on
+    20 points with the strip path's threshold lowered to them."""
+    cfg = get_curve("bn254")
+    ops = curve_ops("bn254")[0]
+    msm = MSM(ops, get_field(cfg.fr_spec), c=13, strips=4, strip_threshold=32)
+    G, pts = host_points(cfg, "g1", 20)
+    pts[4] = None
+    rng = np.random.default_rng(36)
+    scalars = [[int.from_bytes(rng.bytes(32), "little") % cfg.host.R for _ in pts] for _ in range(3)]
+    scalars[1][7] = 0
+    scalars[2][:5] = [1, 2, cfg.host.R - 1, 2**200, 0]
+    fr = msm.fr
+    norm = fr.encode([s for row in scalars for s in row], mont=False).view(fr.n, 3, len(pts))
+    got = g1_from_device_proj(msm.many(g1_to_device(pts, ops.fa.f), norm), ops.fa.f)
+    want = []
+    for row in scalars:
+        acc = None
+        for s, pt in zip(row, pts):
+            acc = G.add(acc, G.mul(pt, s) if pt is not None else None)
         want.append(acc)
     assert got == want
 

@@ -1,5 +1,5 @@
-"""Prover options (the port's copy of tpusnark/backend/config.py, cut to
-what the Groth16 prover reads): the gnark backend.ProverConfig analog.
+"""Prover and verifier options (the port's copy of tpusnark/backend/config.py):
+the gnark backend.ProverConfig and VerifierConfig analogs.
 
 Reference: gnark/backend/backend.go:57-199. gnark threads a `ProverConfig`
 built from functional options through every Prove call; here it is a frozen
@@ -12,15 +12,17 @@ Provers keep accepting bare kwargs (`rng=`) for the common cases; `config=`
 is the structured superset. `accelerator` mirrors gnark's
 `WithIcicleAcceleration` (gnark/backend/backend.go:132): "gpu" runs the
 device path (the witness solver on the card where the circuit's level shape
-favours it), "host" pins the host solver, as tpusnark's "host" does. The
-PLONK and verifier options of tpusnark's module come with the PLONK port.
+favours it), "host" pins the host solver, as tpusnark's "host" does.
+`challenge_hash` and `kzg_fold_hash` replace PLONK's SHA-256 Fiat-Shamir
+hashes (gnark WithProverChallengeHashFunction and
+WithProverKZGFoldingHashFunction); a verifier must be given the same ones.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Callable
+from typing import Any, Callable
 
 ACCELERATORS = ("gpu", "host")
 
@@ -35,6 +37,12 @@ class ProverConfig:
     # prover-side hint overrides, e.g. BSB22 placeholder -> real commit
     # (gnark solver.OverrideHint; reference icicle.go:152-187)
     hint_overrides: dict = field(default_factory=dict)
+    # challenge hash override for Fiat-Shamir (gnark
+    # WithProverChallengeHashFunction, backend.go:74) — None = SHA-256,
+    # the gnark default
+    challenge_hash: Any = None
+    # KZG batch-fold hash override (WithProverKZGFoldingHashFunction)
+    kzg_fold_hash: Any = None
     # "gpu" = the device path; "host" = the host witness solver
     accelerator: str = "gpu"
     # resolve api.Println entries during solving into cs.solve_logs
@@ -52,12 +60,33 @@ class ProverConfig:
             self, hint_overrides={**self.hint_overrides, **overrides}
         )
 
+    def with_challenge_hash(self, h) -> "ProverConfig":
+        return dataclasses.replace(self, challenge_hash=h)
+
+    def with_kzg_fold_hash(self, h) -> "ProverConfig":
+        return dataclasses.replace(self, kzg_fold_hash=h)
+
     def with_accelerator(self, name: str) -> "ProverConfig":
         return dataclasses.replace(self, accelerator=name)
 
     def __post_init__(self):
         if self.accelerator not in ACCELERATORS:
             raise ValueError(f"accelerator {self.accelerator!r}: one of {', '.join(ACCELERATORS)}")
+
+
+@dataclass(frozen=True)
+class VerifierConfig:
+    """gnark backend.VerifierConfig (backend.go:169-199): hash overrides
+    must match the prover's for challenges to line up."""
+
+    challenge_hash: Any = None
+    kzg_fold_hash: Any = None
+
+    def with_challenge_hash(self, h) -> "VerifierConfig":
+        return dataclasses.replace(self, challenge_hash=h)
+
+    def with_kzg_fold_hash(self, h) -> "VerifierConfig":
+        return dataclasses.replace(self, kzg_fold_hash=h)
 
 
 def resolve(config: ProverConfig | None, rng=None) -> ProverConfig:

@@ -216,6 +216,16 @@ def _lanes(a: torch.Tensor, shape) -> torch.Tensor:
     return rows if rows.shape[1] <= 1 or rows.stride(1) == 1 else rows.contiguous()
 
 
+def broadcast_shape(a, b) -> torch.Size:
+    """The broadcast of two shapes. torch.broadcast_shapes does the same but
+    imports sympy on its first call, seconds of host time."""
+    n = max(len(a), len(b))
+    a, b = (1,) * (n - len(a)) + tuple(a), (1,) * (n - len(b)) + tuple(b)
+    if any(x != y and 1 not in (x, y) for x, y in zip(a, b)):
+        raise ValueError(f"shapes {a} and {b} do not broadcast")
+    return torch.Size(y if x == 1 else x for x, y in zip(a, b))
+
+
 def _device_kind(*ts) -> str:
     kinds = {t.device.type for t in ts}
     if len(kinds) != 1:
@@ -288,7 +298,7 @@ class Field:
     # ------------------------------------------------------------ dispatch
     def _binary(self, op: str, a, b, plain):
         if _device_kind(a, b) == "cuda":
-            shape = a.shape if a.shape == b.shape else torch.broadcast_shapes(a.shape, b.shape)
+            shape = a.shape if a.shape == b.shape else broadcast_shape(a.shape, b.shape)
             return kernels.field_binary(op, self.spec, _lanes(a, shape), _lanes(b, shape)).view(shape)
         return plain(*torch.broadcast_tensors(a, b))
 
@@ -427,6 +437,16 @@ class Field:
         v_over_r = self.add(self.from_mont(_pack(lo)), _pack(c))
         r2 = self.const(self.r2, device=cols.device)
         return self.mul(v_over_r, self.broadcast_const(r2, v_over_r))
+
+    def sum(self, a, axis: int = 1):
+        """Sum of elements in [0, 2p) along batch axis `axis` (at most 2^16
+        of them), mod p: int64 column sums (< 2^48), then reduce_columns."""
+        if axis < 1:
+            raise ValueError("sum: axis 0 is the word axis")
+        k = a.shape[axis]
+        if k > 1 << 16:
+            raise ValueError("sum: more than 2^16 terms")
+        return self.reduce_columns(_w64(a).sum(dim=axis), k * (2 * self.modulus - 1))
 
     def segment_sum(self, values, segment_ids, num_segments: int, max_segment: int = 1 << 16):
         """Segmented sum mod p: values (words, T) in [0, 2p), ids (T,); at most

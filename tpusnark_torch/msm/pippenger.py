@@ -88,6 +88,36 @@ def get_msm_for(group: str, n_points: int, curve_name: str) -> "MSM":
     return get_msm(group, auto_c(n_points), curve_name)
 
 
+def auto_c_many(n_points: int, k: int, scalar_bits: int = 254) -> int:
+    """Window size for a k-polynomial composite MSM, as tpusnark picks it:
+    the c that minimises its modeled cost W(c) * [strip mixed adds + the
+    flush-record reduction], which pushes c down as k grows (the reduction
+    scales with k * 2^(c-1) signed-digit buckets, the strip adds do not)."""
+    M0 = k * max(1, n_points)
+    best_c, best_cost = 2, float("inf")
+    for c in range(4, 17):
+        W = -(-(scalar_bits + 1) // c)
+        B = 1 << (c - 1)
+        C = min(1 << 13, 1 << max(3, (M0 - 1).bit_length() - 6))
+        K = k * B + C
+        if M0 >= MSM.STRIP_THRESHOLD and c - 1 > 8:
+            # hierarchical reduce: two strip passes + tiny scans over K
+            reduce_cost = K * 2 * 14 + 2 * k * 512 * 14
+        else:
+            # flat log-scan into k*B buckets + radix weighting
+            m = max(M0, K)
+            reduce_cost = m * max(1, (m - 1).bit_length()) * 14 + 2 * k * B * 14
+        cost = W * (M0 * 12.5 + reduce_cost)
+        if cost < best_cost:
+            best_c, best_cost = c, cost
+    return best_c
+
+
+def get_msm_many_for(group: str, n_points: int, k: int, curve_name: str) -> "MSM":
+    """MSM engine sized for k same-size polynomials over shared points."""
+    return get_msm(group, auto_c_many(n_points, k), curve_name)
+
+
 def window_digits(scalars: torch.Tensor, c: int, n_windows: int) -> torch.Tensor:
     """(words, N) normal-form words -> (n_windows, N) int64 c-bit digits;
     windows past the top word read zeros."""

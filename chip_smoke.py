@@ -83,15 +83,36 @@ Then PLONK over BN254:
      tests/test_plonk_commit.py's circuit (one BSB22 commitment) proved on
      the card. The port's PLONK verifier must accept both proofs and reject
      a wrong public input (in the worker processes).
+Then the Groth16 MPC ceremony over BN254 (``backend/groth16/mpcsetup.py``):
+ 10. (a) phase 1 at 2^17 powers of tau (2^18 - 1 tau, 2^17 alpha and 2^17
+     beta points in G1, 2^17 tau points in G2): two seeded contributions on
+     the card, each timed (host encode, device ladder, to_affine, decode,
+     hash), its launches counted from zero (a g1_add and a g1_add_mixed a
+     scalar bit for each of the three G1 lists, a g2_add and a g2_add_mixed
+     for the G2 one) and its peak memory; after each, every lane of the four
+     lists equals FixedBaseMul of the products of the recorded factors on
+     the card, the first, last and 16 seeded lanes of each the host
+     module's scalar multiple, and compute_hash() the hash; then phase 2's
+     rescale of Z (2^17 - 1 points, built as init_phase2 builds them) by one
+     delta^-1, every lane against FixedBaseMul. (b) The whole ceremony at
+     2^9: init_phase1 and two contributions on the card right after phase
+     6, init_phase2 on the wide circuit with 96 chains (450 constraints,
+     544 private wires, so that L's rescale takes the card) and the
+     verifiers of each link, and of a tampered one that must fail, in the
+     worker processes beside phases 7-9; then two phase-2
+     contributions on the card, extract_keys, a prove on the card whose
+     verdicts the workers give, marshal round trips of the proof, vk and pk
+     and the Solidity export holding the vk and the proof's calldata.
 Then one JSON line with every kernel instance (with, beside the chain's
 prove launches, those of the 2^14 wide device solve and, for BN254, of the
-2^17 wide device-branch prove and of the PLONK prove and setup), the card
-line, and the result line. Any failure exits non-zero before the result line. Imports neither
+2^17 wide device-branch prove, of the PLONK prove and setup and of one
+2^17 phase-1 contribution), the card line, and the result line. Any failure exits non-zero before the result line. Imports neither
 JAX nor the JAX package ``tpusnark``: the port stands on its own host layer.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import multiprocessing
 import os
@@ -1863,6 +1884,322 @@ def phase_plonk(torch, dev, pool):
     return setup_launches, launches, pending
 
 
+# ---------------------------------------------------------------- phase 10
+# The MPC ceremony over BN254 (backend/groth16/mpcsetup.py): phase 1 at
+# 2^CEREMONY_POWER powers of tau on the card (a), and the whole ceremony at
+# 2^CEREMONY_E2E_POWER (b) on the wide circuit with CEREMONY_CHAINS chains:
+# at most 2^9 constraints and more than 512 private wires, so that L's
+# rescale also reaches the device threshold (Z's 511 points stay on the host)
+CEREMONY_POWER = 17
+CEREMONY_E2E_POWER = 9
+CEREMONY_CHAINS = 96
+CEREMONY_SPOT_LANES = 16
+# one scalar bit: a doubling (B6) and a mixed add (B5) per list rescaled
+CEREMONY_BITS = 254
+# the rescaled lists of a phase-1 contribution: three in G1, one in G2
+CEREMONY_G1_LISTS, CEREMONY_G2_LISTS = 3, 1
+
+
+def ceremony_rng(seed, draws):
+    """rng for contribute: each draw in [1, r) appended to `draws`."""
+    from tpusnark_torch.curves.ref import R
+
+    st = random.Random(seed)
+
+    def rng():
+        draws.append(st.randrange(1, R))
+        return draws[-1]
+
+    return rng
+
+
+def ceremony_circuit(log2n: int, chains: int):
+    """The circuit phase 2 binds: wide_circuit at 2^log2n constraints with
+    `chains` chains over BN254's r."""
+    from tpusnark_torch.curves.ref import R
+
+    return wide_circuit(log2n, R, chains=chains)
+
+
+def ceremony_job(kind, *args):
+    """A ceremony step on the host, top level, so that a worker process can
+    run it: ("verify_phase1" | "verify_phase2", prev, cur) -> (None or the
+    error, seconds); ("init_phase2", phase1, log2n, chains) -> ((phase2,
+    evals), seconds) on ceremony_circuit(log2n, chains)."""
+    if HERE not in sys.path:
+        sys.path.insert(0, HERE)
+    from tpusnark_torch.backend.groth16 import mpcsetup
+
+    t0 = time.perf_counter()
+    if kind == "init_phase2":
+        phase1, log2n, chains = args
+        cs, _ = ceremony_circuit(log2n, chains)
+        return mpcsetup.init_phase2(cs, phase1), time.perf_counter() - t0
+    try:
+        getattr(mpcsetup, kind)(*args)
+        err = None
+    except ValueError as e:
+        err = str(e)
+    return err, time.perf_counter() - t0
+
+
+def _contribute(torch, dev, phase, rng, what):
+    """One contribution on `dev`, timed and its peak memory printed; returns
+    its launches, counted from zero."""
+    from tpusnark_torch import kernels
+
+    timings: dict = {}
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()  # the path: one contribution
+    t0 = time.perf_counter()
+    phase.contribute(rng, device=dev, timings=timings)
+    _sync(torch, dev)
+    timings["wall"] = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    timings["host other"] = timings["wall"] - sum(v for k, v in timings.items() if k != "wall")
+    peak = torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else float("nan")
+    say(
+        f"[10 ceremony] {what}: " + " ".join(f"{k}={v:.4f}s" for k, v in timings.items())
+        + f" | peak device memory {peak:.3f} GB | launches "
+        + " ".join(f"{k}={v}" for k, v in launches.items() if v)
+    )
+    return launches
+
+
+def check_ceremony_launches(launches, g1_lists, g2_lists, what):
+    """The ladders ran on the card: a B6 and a B5 launch a scalar bit a
+    list, per group, and no other curve kernel."""
+    want = {
+        "g1_add[bn254]": g1_lists * CEREMONY_BITS,
+        "g1_add_mixed[bn254]": g1_lists * CEREMONY_BITS,
+        "g2_add[bn254]": g2_lists * CEREMONY_BITS,
+        "g2_add_mixed[bn254]": g2_lists * CEREMONY_BITS,
+    }
+    got = {k: launches[k] for k in want}
+    if got != want:
+        fail(f"{what}: curve kernel launches {got}, not {want}")
+    stray = [k for k, v in launches.items() if v and "[bn254]" in k and k not in want]
+    if stray:
+        fail(f"{what}: other curve kernels launched: {stray}")
+
+
+def check_fixed_base(torch, dev, group, points, scalars, what):
+    """Every lane of the host points `points` equals [s_i]G of the group's
+    generator, made on `dev` by FixedBaseMul: affine words equal."""
+    from tpusnark_torch.backend.groth16.setup import to_affine
+    from tpusnark_torch.curves.batch_mul import FixedBaseMul, g1_generator_ladder, g2_generator_ladder
+    from tpusnark_torch.curves.config import get_curve
+    from tpusnark_torch.curves.encoding import g1_to_device, g2_to_device
+    from tpusnark_torch.curves.tcurve import curve_ops
+    from tpusnark_torch.fields.tfield import get_field
+    from tpusnark_torch.msm.pippenger import tree_map
+
+    cfg = get_curve("bn254")
+    fp, fr = get_field(cfg.fp_spec), get_field(cfg.fr_spec)
+    g1, g2 = curve_ops("bn254")
+    if group == "g1":
+        ops, ladder, enc = g1, g1_generator_ladder, g1_to_device
+    else:
+        ops, ladder, enc = g2, g2_generator_ladder, g2_to_device
+    mul = FixedBaseMul(ops, fr)
+    table = ladder(fp, mul.n_bits, "bn254", dev)
+    X, Y, inf = to_affine(ops, mul(table, fr.encode(scalars, mont=False, device=dev)))
+    want = [c for v in tree_map(fp.canon, (X, Y)) for c in ops.fa.components(v)]
+    got = enc(points, fp, dev)
+    bad = got[2] != inf
+    for a, b in zip([c for v in got[:2] for c in ops.fa.components(v)], want):
+        bad |= (a != b).any(dim=0) & ~inf
+    n_bad = int(bad.sum())
+    if n_bad:
+        fail(f"{what}: {n_bad} of {len(points)} lanes differ from FixedBaseMul")
+
+
+def check_phase1_lanes(torch, dev, phase1, tau, alpha, beta, what, seed):
+    """Every lane of a phase-1 transcript grown from the generators by
+    factors tau, alpha, beta against FixedBaseMul on `dev`; the first, last
+    and CEREMONY_SPOT_LANES seeded lanes of each list against the host
+    module; the hash."""
+    from tpusnark_torch.backend.groth16.mpcsetup import _powers
+    from tpusnark_torch.curves.ref import G1, G2, R
+
+    n = phase1.n
+    taus = _powers(tau, 2 * n - 1)
+    lists = (
+        ("tau_g1", "g1", phase1.tau_g1, taus),
+        ("alpha_tau_g1", "g1", phase1.alpha_tau_g1, [alpha * t % R for t in taus[:n]]),
+        ("beta_tau_g1", "g1", phase1.beta_tau_g1, [beta * t % R for t in taus[:n]]),
+        ("tau_g2", "g2", phase1.tau_g2, taus[:n]),
+    )
+    t0 = time.perf_counter()
+    for name, group, points, scalars in lists:
+        check_fixed_base(torch, dev, group, points, scalars, f"{what} {name}")
+    t_fixed = time.perf_counter() - t0
+    spot = random.Random(seed)
+    for name, group, points, scalars in lists:
+        G = G1 if group == "g1" else G2
+        lanes = [0, len(points) - 1] + [spot.randrange(len(points)) for _ in range(CEREMONY_SPOT_LANES)]
+        for i in lanes:
+            if points[i] != G.mul(G.generator(), scalars[i]):
+                fail(f"{what} {name}[{i}] differs from the host module's scalar multiple")
+    if phase1.beta_g2 != G2.mul(G2.generator(), beta):
+        fail(f"{what} beta_g2 differs from the host module's")
+    if phase1.compute_hash() != phase1.hash:
+        fail(f"{what}: compute_hash() differs from the transcript's hash")
+    say(
+        f"[10 ceremony] {what}: every lane of the four lists ({2 * n - 1} + {n} + {n} G1, {n} G2) equals "
+        f"FixedBaseMul on {dev.type} ({t_fixed:.2f} s), {2 + CEREMONY_SPOT_LANES} lanes a list and beta_g2 the host "
+        "module's, compute_hash() the hash"
+    )
+
+
+def phase_ceremony_full(torch, dev, power=None):
+    """(a) Phase 1 at 2^power powers of tau (CEREMONY_POWER): two seeded
+    contributions on `dev`, each timed and counted, each transcript held lane
+    for lane; then phase 2's rescale of Z at full width. Returns the
+    launches of the second contribution."""
+    from tpusnark_torch import kernels
+    from tpusnark_torch.backend.groth16 import mpcsetup
+    from tpusnark_torch.curves.ref import G1, R
+
+    power = power or CEREMONY_POWER
+    t0 = time.perf_counter()
+    phase1 = mpcsetup.init_phase1(power)
+    say(f"[10 ceremony] init_phase1({power}): {time.perf_counter() - t0:.4f} s")
+    tau = alpha = beta = 1  # the products of the contributions' factors
+    for i in (1, 2):
+        draws = []
+        rng = ceremony_rng(SEED + 20 + i, draws)
+        launches = _contribute(torch, dev, phase1, rng, f"2^{power} phase-1 contribution {i}")
+        if dev.type == "cuda":
+            check_ceremony_launches(launches, CEREMONY_G1_LISTS, CEREMONY_G2_LISTS, f"2^{power} contribution {i}")
+        tau, alpha, beta = tau * draws[0] % R, alpha * draws[1] % R, beta * draws[2] % R
+        check_phase1_lanes(torch, dev, phase1, tau, alpha, beta, f"2^{power} after contribution {i}", SEED + 30 + i)
+    # phase 2's rescale of Z (init_phase2's Z, one delta^-1) at full width
+    n = phase1.n
+    t0 = time.perf_counter()
+    z = [G1.add(phase1.tau_g1[i + n], G1.neg(phase1.tau_g1[i])) for i in range(n - 1)]
+    t_z = time.perf_counter() - t0
+    delta_inv = pow(random.Random(SEED + 29).randrange(1, R), -1, R)
+    timings: dict = {}
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    scaled = mpcsetup._scale_g1(z, [delta_inv] * (n - 1), dev, timings)
+    t_scale = time.perf_counter() - t0
+    z_launches = dict(kernels.LAUNCHES)
+    if dev.type == "cuda":
+        check_ceremony_launches(z_launches, 1, 0, f"2^{power} Z rescale")
+    taus = mpcsetup._powers(tau, 2 * n - 1)
+    check_fixed_base(
+        torch, dev, "g1", scaled, [(taus[i + n] - taus[i]) * delta_inv % R for i in range(n - 1)], f"2^{power} Z rescale"
+    )
+    say(
+        f"[10 ceremony] 2^{power} Z rescale ({n - 1} points, built in {t_z:.2f} s): {t_scale:.4f} s ("
+        + " ".join(f"{k}={v:.4f}s" for k, v in timings.items())
+        + f"), every lane equals FixedBaseMul of (tau^(i+n) - tau^i) / delta | launches "
+        + " ".join(f"{k}={v}" for k, v in z_launches.items() if v)
+    )
+    return launches
+
+
+def phase_ceremony_start(torch, dev, pool, power=None):
+    """(b), first half: init_phase1 at 2^power (CEREMONY_E2E_POWER) and two
+    contributions on `dev`; the workers verify each link and a tampered one
+    and run init_phase2 on the ceremony circuit. Returns the state."""
+    from tpusnark_torch.backend.groth16 import mpcsetup
+
+    power = power or CEREMONY_E2E_POWER
+    chain = [mpcsetup.init_phase1(power)]
+    for i in (1, 2):
+        nxt = copy.deepcopy(chain[-1])
+        launches = _contribute(torch, dev, nxt, ceremony_rng(SEED + 40 + i, []), f"2^{power} phase-1 contribution {i}")
+        if dev.type == "cuda":
+            check_ceremony_launches(launches, CEREMONY_G1_LISTS, CEREMONY_G2_LISTS, f"2^{power} contribution {i}")
+        chain.append(nxt)
+    bad = copy.deepcopy(chain[2])
+    bad.tau_g1[2] = bad.tau_g1[1]
+    bad.hash = bad.compute_hash()
+    jobs = {"init_phase2": pool.apply_async(ceremony_job, ("init_phase2", chain[2], power, CEREMONY_CHAINS))}
+    for i in (1, 2):
+        jobs[f"phase-1 link {i}"] = pool.apply_async(ceremony_job, ("verify_phase1", chain[i - 1], chain[i]))
+    jobs["tampered phase-1 link"] = pool.apply_async(ceremony_job, ("verify_phase1", chain[1], bad))
+    say(f"[10 ceremony] 2^{power}: two phase-1 contributions on {dev.type}; init_phase2 and the verifiers in the workers")
+    return {"power": power, "chains": CEREMONY_CHAINS, "phase1": chain[2], "jobs": jobs}
+
+
+def phase_ceremony_finish(torch, dev, pool, state):
+    """(b), second half: phase 2 from the workers' init_phase2, two
+    contributions on `dev`, the links to the workers; extract_keys, a prove
+    on `dev` (its verdicts to the workers); marshal round trips and the
+    Solidity export. Returns the pending proof verdicts."""
+    from tpusnark_torch import kernels
+    from tpusnark_torch.backend.groth16 import export_solidity, marshal, mpcsetup, proof_to_solidity_calldata, prove
+    from tpusnark_torch.curves.ref import R
+
+    power, jobs = state["power"], state["jobs"]
+    (phase2, evals), dt = jobs.pop("init_phase2").get()
+    cs, assign = ceremony_circuit(power, state["chains"])
+    n_private = cs.n_wires - cs.n_public
+    say(
+        f"[10 ceremony] 2^{power} init_phase2 (a worker): {dt:.2f} s on the ceremony circuit ({len(cs.constraints)} "
+        f"constraints, {cs.n_wires} wires, {n_private} private: L {len(phase2.l_g1)} points, Z {len(phase2.z_g1)})"
+    )
+    if len(phase2.l_g1) < mpcsetup._DEVICE_THRESHOLD or len(cs.constraints) > 1 << power:
+        fail(f"the ceremony circuit has {len(phase2.l_g1)} L points and {len(cs.constraints)} constraints")
+    chain = [phase2]
+    for i in (1, 2):
+        nxt = copy.deepcopy(chain[-1])
+        launches = _contribute(torch, dev, nxt, ceremony_rng(SEED + 50 + i, []), f"2^{power} phase-2 contribution {i}")
+        if dev.type == "cuda":  # L on the card, Z (n - 1 < 512 points) on the host
+            check_ceremony_launches(launches, 1, 0, f"2^{power} phase-2 contribution {i}")
+        chain.append(nxt)
+    for i in (1, 2):
+        jobs[f"phase-2 link {i}"] = pool.apply_async(ceremony_job, ("verify_phase2", chain[i - 1], chain[i]))
+    pk, vk = mpcsetup.extract_keys(cs, state["phase1"], chain[2], evals)
+    prng = random.Random(SEED + 60)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    proof = prove(cs, pk, assign, rng=lambda: prng.randrange(R), device=dev)
+    t_prove = time.perf_counter() - t0
+    prove_launches = dict(kernels.LAUNCHES)
+    pending = submit_verdicts(pool, "bn254", proof, vk, [assign["y"]], [(assign["y"] + 1) % R])
+    # what ships the keys: gnark's byte layout and the Solidity verifier
+    t0 = time.perf_counter()
+    if marshal.proof_from_bytes(marshal.proof_to_bytes(proof)) != proof:
+        fail("the ceremony proof does not survive marshal")
+    if marshal.vk_from_bytes(marshal.vk_to_bytes(vk)) != vk:
+        fail("the ceremony vk does not survive marshal")
+    back = marshal.pk_from_bytes(marshal.pk_to_bytes(pk))
+    fields = ("alpha_g1", "beta_g1", "delta_g1", "beta_g2", "delta_g2", "a", "b1", "b2", "k", "z", "domain_n")
+    if [getattr(back, f) for f in fields] != [getattr(pk, f) for f in fields]:
+        fail("the ceremony pk does not survive marshal")
+    t_marshal = time.perf_counter() - t0
+    src = export_solidity(vk)
+    words = proof_to_solidity_calldata(proof)
+    consts = [f"ALPHA_X = {vk.alpha_g1[0]};", f"DELTA_X0 = {vk.delta_g2[0].c0};", f"K_Y_1 = {vk.k[1][1]};"]
+    want = [proof.ar[0], proof.ar[1], proof.bs[0].c1, proof.bs[0].c0, proof.bs[1].c1, proof.bs[1].c0, proof.krs[0], proof.krs[1]]
+    if any(c not in src for c in consts) or "uint256[1] calldata input" not in src or words != want:
+        fail("export_solidity/proof_to_solidity_calldata do not hold the ceremony's vk and proof")
+    say(
+        f"[10 ceremony] 2^{power}: extract_keys, prove on {dev.type} {t_prove:.4f} s (launches "
+        + " ".join(f"{k}={v}" for k, v in prove_launches.items() if v)
+        + f"); proof, vk and pk survive marshal ({t_marshal:.2f} s); the Solidity verifier ({len(src)} bytes) holds "
+        "the vk and the calldata the proof"
+    )
+    return pending
+
+
+def collect_ceremony(state, pending):
+    """Wait for the ceremony's links and proof verdicts: every link passes,
+    the tampered one raises, the proof is accepted and a wrong input not."""
+    for name, res in state["jobs"].items():
+        err, dt = res.get()
+        if (err is None) == name.startswith("tampered"):
+            fail(f"ceremony {name}: {'passed' if err is None else err}")
+        say(f"[10 verify] ceremony {name}: {'rejected: ' + err if err else 'verified'} ({dt:.2f} s)")
+    collect_verdicts("bn254", f"{state['power']} ceremony", pending)
+
+
 # ---------------------------------------------------------------- main
 def main() -> None:
     try:
@@ -1900,6 +2237,10 @@ def run() -> None:
     missing = sorted(set(kernels.LAUNCHES) - set(checks))
     if missing:
         fail(f"kernels not checked: {missing}")
+    # phase 10 (b) starts here: its init_phase2 and verifiers are minutes of
+    # host work in the workers, beside phases 7-9 (and after phase 3's
+    # kernel timings, which the host's load moves)
+    ceremony = phase_ceremony_start(torch, dev, pool)
     phase_ntt_large(torch, dev, np_rng)
     wide_solve = {curve: phase_wide_solve(torch, dev, curve) for curve in CURVES}
     _, wide_prove_launches, pending["wide"] = phase_wide_prove(
@@ -1910,10 +2251,13 @@ def run() -> None:
         f"{B1_PER_PROVE} and {B2_PER_PROVE} times), the wide circuit's default prove the device solver"
     )
     plonk_setup_launches, plonk_launches, pending["plonk"] = phase_plonk(torch, dev, pool)
+    ceremony_launches = phase_ceremony_full(torch, dev)
+    pending["ceremony"] = phase_ceremony_finish(torch, dev, pool, ceremony)
     for curve in CURVES:
         collect_verdicts(curve, LOG2_CONSTRAINTS, pending[curve])
     collect_verdicts("bn254", f"{LOG2_CONSTRAINTS} wide and commit", pending["wide"])
     collect_verdicts("bn254", f"{PLONK_LOG2} PLONK and PLONK commit", pending["plonk"])
+    collect_ceremony(ceremony, pending["ceremony"])
     stop_workers()
     for mod in ("jax", "tpusnark"):
         if mod in sys.modules:
@@ -1949,6 +2293,7 @@ def run() -> None:
                             "launches_wide_prove": wide_prove_launches[name],
                             "launches_plonk_prove": plonk_launches[name],
                             "launches_plonk_setup": plonk_setup_launches[name],
+                            "launches_ceremony": ceremony_launches[name],
                         }
                         if curve == "bn254"
                         else {}
@@ -1957,7 +2302,7 @@ def run() -> None:
                     **({"absorbs": ABSORBS[op]} if (op := name.split("[")[0]) in ABSORBS else {}),
                 )
             )
-    say(f"[10 done] {time.perf_counter() - t_start:.1f} s in all")
+    say(f"[11 done] {time.perf_counter() - t_start:.1f} s in all")
     say(json.dumps({"kernels": rows}))
     say(card)
     say(

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Phase times and device busy share of the port's Groth16 or PLONK prove on one GPU.
+"""Phase times and device busy share of the port's Groth16 or PLONK prove, or
+of an MPC ceremony contribution, on one GPU.
 
-    python3 scripts/profile_torch_prove.py [--curves bw6-761,bls12-377] [--proves 4] [--circuit wide|plonk]
+    python3 scripts/profile_torch_prove.py [--curves bw6-761,bls12-377] [--proves 4] [--circuit wide|plonk|ceremony]
 
 Per curve, on chip_smoke.py's 2^17 multiplication chain (or, with
 ``--circuit wide``, its wide circuit, with a BSB22 commitment over BN254):
@@ -12,7 +13,11 @@ turns, through the default device branch and with accelerator="host" (the
 host witness solver), and one of each is profiled. With ``--circuit plonk``
 the prove is PLONK over BN254 on chip_smoke.py's PLONK circuit (bench.py's
 mul/add chain, a 2^17 domain), its keys from an unsafe SRS made on the card
-from a seeded tau. From the profile it prints the device time by kernel, the
+from a seeded tau. With ``--circuit ceremony`` the work is one phase-1
+contribution of the Groth16 MPC ceremony over BN254 at 2^log2n powers of
+tau (``mpcsetup.Phase1.contribute`` on the card, its step times), repeated
+`--proves` times on one transcript, then once under the profiler. From the
+profile it prints the device time by kernel, the
 device busy time (kernel intervals merged, so that overlapping kernels count
 once) and the idle share of that prove's wall time. Every line of numbers
 stands after the card's name and power limit. Needs a CUDA device; imports
@@ -81,14 +86,52 @@ def profile_one(torch, prove_once):
     return wall, merged_busy_us(spans) / 1e6, kernels
 
 
+def profile_ceremony(torch, card, args) -> None:
+    """Phase-1 contributions at 2^log2n powers of tau: step times, then one
+    profiled."""
+    from tpusnark_torch import kernels
+    from tpusnark_torch.backend.groth16 import mpcsetup
+
+    chip_smoke.phase_build()
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    phase1 = mpcsetup.init_phase1(args.log2n)
+    print(f"[{card}] ceremony init_phase1({args.log2n}) {time.perf_counter() - t0:.4f} s", flush=True)
+    rng = chip_smoke.ceremony_rng(chip_smoke.SEED, [])
+    for i in range(args.proves):
+        timings: dict = {}
+        t0 = time.perf_counter()
+        phase1.contribute(rng, device=dev, timings=timings)
+        total = time.perf_counter() - t0
+        print(
+            f"[{card}] ceremony contribution {i + 1} total={total:.4f} "
+            + " ".join(f"{k}={v:.4f}" for k, v in timings.items()),
+            flush=True,
+        )
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    wall, busy, by_kernel = profile_one(torch, lambda: phase1.contribute(rng, device=dev))
+    print(
+        f"[{card}] ceremony profiled contribution wall={wall:.4f} s device busy={busy:.4f} s "
+        f"idle share={1 - busy / wall:.4f} device events={sum(n for n, _ in by_kernel.values())} "
+        f"port kernel launches={sum(kernels.LAUNCHES.values())} "
+        f"peak memory={torch.cuda.max_memory_allocated() / 1e9:.3f} GB",
+        flush=True,
+    )
+    for name, (n, ms) in sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:14]:
+        print(f"[{card}] ceremony   {name:60s} launches={n:6d} ms={ms:.3f}", flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--curves", default="bls24-315,bls24-317,bw6-761,bw6-633,bls12-377,bls12-381,bn254")
     ap.add_argument("--proves", type=int, default=4)
     ap.add_argument("--log2n", type=int, default=chip_smoke.LOG2_CONSTRAINTS)
-    ap.add_argument("--circuit", choices=("chain", "wide", "plonk"), default="chain")
+    ap.add_argument("--circuit", choices=("chain", "wide", "plonk", "ceremony"), default="chain")
     args = ap.parse_args()
     torch, card = chip_smoke.phase_card()
+    if args.circuit == "ceremony":
+        return profile_ceremony(torch, card, args)
     from tpusnark_torch import kernels
     from tpusnark_torch.backend.config import ProverConfig
     from tpusnark_torch.backend import plonk

@@ -233,9 +233,12 @@ def test_curves_without_kernels_are_refused(curve):
 
 @pytest.mark.parametrize("curve", ("bn254", "bw6-761"))
 def test_entry_points_run_on_the_card_unless_the_caller_names_the_cpu(curve):
-    """setup and prove default to device="cuda": with no card they raise and
-    do not fall back to the plain versions."""
-    for fn in (tg16.setup, tg16.prove):
+    """setup, prove and the ceremony's contributions (BN254 only)
+    default to device="cuda": with no card they raise and do not fall back
+    to the plain versions, the contributions even for an SRS under the
+    device threshold (before any rng draw)."""
+    mpc = tg16.mpcsetup
+    for fn in (tg16.setup, tg16.prove, mpc.Phase1.contribute, mpc.Phase2.contribute):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     if torch.cuda.is_available():
         pytest.skip("this machine has a card: the default runs there")
@@ -246,6 +249,13 @@ def test_entry_points_run_on_the_card_unless_the_caller_names_the_cpu(curve):
     pk.curve = curve
     with pytest.raises(RuntimeError, match="no CUDA card"):
         tg16.prove(cs, pk, ASSIGN)
+    if curve == "bn254":
+        drawn = []
+        rng = lambda: drawn.append(1) or 2  # noqa: E731
+        for phase in (mpc.init_phase1(1), mpc.Phase2.__new__(mpc.Phase2)):
+            with pytest.raises(RuntimeError, match="no CUDA card"):
+                phase.contribute(rng)
+        assert not drawn
 
 
 def test_layer_entry_points_run_on_the_card_unless_the_caller_names_the_cpu():

@@ -401,9 +401,9 @@ def test_commitment_sections_are_refused_by_the_port_verifier():
 
 
 def code_without_docstrings(mod):
-    """code_of a module with every docstring dropped: the copies cite the
-    reference's sources under another root."""
-    tree = ast.parse(inspect.getsource(mod))
+    """code_of a module (or a function or class) with every docstring
+    dropped: the copies cite the reference's sources under another root."""
+    tree = ast.parse(textwrap.dedent(inspect.getsource(mod)))
     for node in ast.walk(tree):
         body = getattr(node, "body", None)
         if isinstance(body, list) and body and isinstance(body[0], ast.Expr) and isinstance(body[0].value, ast.Constant):
@@ -563,3 +563,85 @@ def test_plonk_containers_and_config_have_tpusnark_fields():
         assert (cfg.challenge_hash, cfg.kzg_fold_hash) == ("h", "k")
         vcfg = mod.VerifierConfig().with_challenge_hash("h").with_kzg_fold_hash("k")
         assert (vcfg.challenge_hash, vcfg.kzg_fold_hash) == ("h", "k")
+
+
+# ------------------------------------------------ the ceremony and its shipping
+@pytest.mark.parametrize("name", ("curves.hash_to_g2", "backend.groth16.marshal", "backend.groth16.solidity"))
+def test_ceremony_and_shipping_host_modules_are_tpusnark_code(name):
+    """The copies of hash-to-G2 (the ceremony's proof-of-knowledge base),
+    Groth16's gnark byte layout and its Solidity export are tpusnark's code."""
+    ours = import_module(f"tpusnark_torch.{name}")
+    theirs = import_module(f"tpusnark.{name}")
+    assert code_without_docstrings(ours) == code_without_docstrings(theirs)
+
+
+# the port's own: the device rescale and its sync (tpusnark's rescale runs
+# its JAX code inside _scale_g1/_scale_g2), and the imports they use
+MPC_PORT_ONLY = {"_scale", "_sync", "torch", "time", "VarBaseMul", "get_curve", "g1_to_device", "g2_to_device"}
+MPC_PORT_ONLY |= {"curve_ops", "compute_device", "get_field", "to_affine", "to_host"}
+MPC_RESCALE = {"_scale_g1", "_scale_g2"}
+
+
+def methods_of(cls) -> dict:
+    """name -> function of the methods a class defines in its source (the
+    dataclass-made dunders left out), properties as their getters."""
+    out = {}
+    for k, v in vars(cls).items():
+        v = v.fget if isinstance(v, property) else v.__func__ if isinstance(v, staticmethod) else v
+        if inspect.isfunction(v) and not k.startswith("__"):
+            out[k] = v
+    return out
+
+
+def test_mpcsetup_is_tpusnark_code_but_the_rescale():
+    """Every function and method of the port's mpcsetup but the rescale
+    (_scale_g1, _scale_g2 and the two contribute methods, which take a
+    device) is tpusnark's code; the dataclasses have tpusnark's fields and
+    the shape rule tpusnark's threshold."""
+    tm = import_module("tpusnark_torch.backend.groth16.mpcsetup")
+    jm = import_module("tpusnark.backend.groth16.mpcsetup")
+    names = {n for n in vars(tm) if not n.startswith("__")}
+    assert names == {n for n in vars(jm) if not n.startswith("__")} | MPC_PORT_ONLY
+    assert tm._DEVICE_THRESHOLD == jm._DEVICE_THRESHOLD == 1 << 9
+    compared = 0
+    for name in sorted(names - MPC_PORT_ONLY - MPC_RESCALE):
+        ours, theirs = getattr(tm, name), getattr(jm, name)
+        if inspect.isfunction(theirs) and theirs.__module__ == jm.__name__:
+            assert code_without_docstrings(ours) == code_without_docstrings(theirs), name
+            compared += 1
+        elif inspect.isclass(theirs) and theirs.__module__ == jm.__name__:
+            assert [f.name for f in dataclasses.fields(ours)] == [f.name for f in dataclasses.fields(theirs)]
+            assert methods_of(ours).keys() == methods_of(theirs).keys()
+            for m, fn in sorted(methods_of(theirs).items()):
+                if m != "contribute":
+                    assert code_without_docstrings(methods_of(ours)[m]) == code_without_docstrings(fn), f"{name}.{m}"
+                    compared += 1
+    assert compared >= 25
+
+
+def test_hash_to_g2_values_equal_tpusnark():
+    ours = import_module("tpusnark_torch.curves.hash_to_g2")
+    theirs = import_module("tpusnark.curves.hash_to_g2")
+    host = tcurves.get_curve("bn254").host
+    assert ours.G2_COFACTOR == theirs.G2_COFACTOR
+    for msg, dst in ((b"hello", b"dst-a"), (b"", bytes([1])), (bytes(range(160)), bytes([3]))):
+        q = ours.hash_to_g2(msg, dst)
+        assert q == theirs.hash_to_g2(msg, dst) and host.G2.in_subgroup(q)
+
+
+def test_marshal_and_solidity_of_a_host_proof_equal_tpusnark():
+    """On the host-made toy proof: the port's marshal gives tpusnark's bytes
+    and reads them back; the exported contract text and calldata are
+    tpusnark's."""
+    tmarshal = import_module("tpusnark_torch.backend.groth16.marshal")
+    jmarshal = import_module("tpusnark.backend.groth16.marshal")
+    tsol = import_module("tpusnark_torch.backend.groth16.solidity")
+    jsol = import_module("tpusnark.backend.groth16.solidity")
+    proof, vk, _ = toy_proof("bn254", tkeys)
+    for raw in (False, True):
+        assert tmarshal.proof_to_bytes(proof, raw) == jmarshal.proof_to_bytes(proof, raw)
+        assert tmarshal.vk_to_bytes(vk, raw) == jmarshal.vk_to_bytes(vk, raw)
+        assert tmarshal.proof_from_bytes(tmarshal.proof_to_bytes(proof, raw)) == proof
+        assert tmarshal.vk_from_bytes(jmarshal.vk_to_bytes(vk, raw)) == vk
+    assert tsol.export_solidity(vk) == jsol.export_solidity(vk)
+    assert tsol.proof_to_solidity_calldata(proof) == jsol.proof_to_solidity_calldata(proof)

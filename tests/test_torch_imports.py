@@ -44,7 +44,8 @@ IMPORT_ALL = BLOCK + textwrap.dedent(
                  "utils.hash_to_field", "frontend.builder", "fields.spec", "poly.domain",
                  "utils.transcript", "constraint.scs", "frontend.plonk_builder", "poly.scan", "poly.iop",
                  "poly.kzg", "backend.plonk.keys", "backend.plonk.setup", "backend.plonk.prove",
-                 "backend.plonk.verify"):
+                 "backend.plonk.verify", "curves.hash_to_g2", "backend.groth16.mpcsetup",
+                 "backend.groth16.marshal", "backend.groth16.solidity"):
         assert "tpusnark_torch." + name in names, name
     assert "tpusnark_torch._host" not in names
     assert sys.modules["jax"] is None and sys.modules["tpusnark"] is None
@@ -253,6 +254,49 @@ def start_plonk_without_jax(circuit, assignment, public, tau, seed, tmp_dir):
             return pickle.load(f)
 
     return wait
+
+
+# The ceremony at power 2 through the port's entry points: init, one
+# phase-1 contribution held by chip_smoke.py's phase-10 lane checks, one
+# phase-2 contribution, both links verified, extract_keys, a prove and its
+# verdicts.
+CEREMONY = BLOCK + textwrap.dedent(
+    """
+    import copy, random
+    import torch
+    import chip_smoke
+    from tpusnark_torch.backend.groth16 import mpcsetup, prove, verify
+    from tpusnark_torch.curves.ref import R
+    from tpusnark_torch.frontend.builder import Builder
+    cpu = torch.device("cpu")
+    p1_init = mpcsetup.init_phase1(2)
+    p1, draws = copy.deepcopy(p1_init), []
+    p1.contribute(chip_smoke.ceremony_rng(1, draws), device="cpu")
+    mpcsetup.verify_phase1(p1_init, p1)
+    chip_smoke.check_phase1_lanes(torch, cpu, p1, *draws[:3], "power 2", 5)
+    b = Builder(R)
+    x, y = b.secret("x"), b.public("y")
+    b.assert_is_equal(b.add(b.mul(x, x, x), x, 5), y)
+    cs = b.compile()
+    p2_init, evals = mpcsetup.init_phase2(cs, p1)
+    p2 = copy.deepcopy(p2_init)
+    p2.contribute(chip_smoke.ceremony_rng(2, []), device="cpu")
+    mpcsetup.verify_phase2(p2_init, p2)
+    pk, vk = mpcsetup.extract_keys(cs, p1, p2, evals)
+    rng = random.Random(3)
+    proof = prove(cs, pk, {{"x": 3, "y": 35}}, rng=lambda: rng.randrange(R), device="cpu")
+    assert verify(proof, vk, [35]) and not verify(proof, vk, [36])
+    assert sys.modules["jax"] is None and sys.modules["tpusnark"] is None
+    print("ceremony ok")
+    """
+)
+
+
+def test_ceremony_runs_without_jax_and_tpusnark():
+    res = _run([sys.executable, "-c", CEREMONY.format(root=ROOT)], ROOT)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ceremony ok")
+    assert "every lane of the four lists" in res.stdout
 
 
 def test_the_port_and_chip_smoke_name_no_tpusnark_import():

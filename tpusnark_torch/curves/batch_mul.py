@@ -1,11 +1,18 @@
-"""Batched fixed-base scalar multiplication (counterpart of
-tpusnark/curves/batch_mul.py:FixedBaseMul), used by Groth16 setup.
+"""Batched scalar multiplication on the device (counterpart of
+tpusnark/curves/batch_mul.py): ``FixedBaseMul``, used by Groth16 setup, and
+``VarBaseMul``, used by the MPC ceremony (``backend/groth16/mpcsetup.py``).
 
-The base is fixed, so the 2^k * G ladder is built once on the host from the
-curve's host module (``CurveConfig.host``), and the device runs one complete
-mixed add per scalar bit over the whole scalar vector. tpusnark selects
-between acc and acc + 2^k G after the add; here lanes whose bit is 0 are the add's infinity lanes, which
-return acc unchanged: the same result, in one kernel launch (B5) per bit.
+FixedBaseMul: the base is fixed, so the 2^k * G ladder is built once on the
+host from the curve's host module (``CurveConfig.host``), and the device runs
+one complete mixed add per scalar bit over the whole scalar vector.
+tpusnark selects between acc and acc + 2^k G after the add; here lanes whose
+bit is 0 are the add's infinity lanes, which return acc unchanged: the same
+result, in one kernel launch (B5) per bit.
+
+VarBaseMul: lane i computes s_i * P_i, MSB first: per scalar bit one
+complete doubling (B6, ``double`` = ``add(acc, acc)``) and one complete mixed
+add of P_i (B5) whose infinity mask is ``bit == 0 | inf``, so that a lane
+keeps acc where tpusnark selects it back: two launches a bit.
 """
 
 from __future__ import annotations
@@ -45,6 +52,31 @@ class FixedBaseMul:
             skip = ((u[k // 32] >> (k % 32)) & 1) == 0
             pt = tree_map(lambda a: a[:, k : k + 1], (tX, tY))
             acc = ops.add_mixed(acc, pt + (skip,))
+        return acc
+
+
+class VarBaseMul:
+    """Batched variable-base scalar multiplication, bound to (ops, scalar
+    field, scalar bits): the device analog of the MPC ceremony's per-point
+    rescale of the SRS (gnark's scaleG1InPlace/scaleG2InPlace,
+    gnark/backend/groth16/bn254/mpcsetup/utils.go:83-102)."""
+
+    def __init__(self, ops: CurveOps, fr: Field, n_bits: int | None = None):
+        self.ops = ops
+        self.fr = fr
+        self.n_bits = n_bits or fr.modulus.bit_length()
+
+    def __call__(self, points_affine, scalars_norm):
+        """points_affine: (X, Y, inf) with batch N; scalars_norm: (words, N)
+        normal-form words (bit k is bit k % 32 of word k // 32). Returns
+        projective points with batch N, on the points' device."""
+        ops = self.ops
+        X, Y, inf = points_affine
+        u = scalars_norm.to(torch.int64) & 0xFFFFFFFF
+        acc = ops.identity_like(X)
+        for k in reversed(range(self.n_bits)):
+            skip = (((u[k // 32] >> (k % 32)) & 1) == 0) | inf
+            acc = ops.add_mixed(ops.double(acc), (X, Y, skip))
         return acc
 
 

@@ -103,10 +103,26 @@ Then the Groth16 MPC ceremony over BN254 (``backend/groth16/mpcsetup.py``):
      contributions on the card, extract_keys, a prove on the card whose
      verdicts the workers give, marshal round trips of the proof, vk and pk
      and the Solidity export holding the vk and the proof's calldata.
+Then the sharded device layer (``tpusnark_torch/parallel``,
+``backend/*/sharded.py``) over four shards of card 0:
+ 11. (a) ShardedMSM over BN254 at 2^17 points, G1 and G2, and its .many at
+     k = 3, each equal to the unsharded MSM point for point; (b) ShardedNTT
+     at 2^17 and 2^20: ntt, intt, ntt_coset and intt_coset equal to the NTT
+     on every lane mod p; (c) prove_sharded on phase 5's chain and phase
+     8's wide circuit with their keys, equal to their unsharded proofs
+     under the same rng point for point, with the workers' verdicts, and
+     warm sharded and unsharded chain proves in turns with phase times;
+     (d) PLONK's prove_sharded on phase 9's circuit, equal to its proof
+     field for field and verified, its proof_to_bytes round trip, its
+     Solidity export and 26-word calldata, and the export refusing phase
+     9's BSB22 key; each sharded path's launches counted from zero (every
+     kernel it must run); (e) (a)-(c) over the distinct cards where torch
+     sees several, else one line saying that it did not run.
 Then one JSON line with every kernel instance (with, beside the chain's
 prove launches, those of the 2^14 wide device solve and, for BN254, of the
-2^17 wide device-branch prove, of the PLONK prove and setup and of one
-2^17 phase-1 contribution), the card line, and the result line. Any failure exits non-zero before the result line. Imports neither
+2^17 wide device-branch prove, of the PLONK prove and setup, of one 2^17
+phase-1 contribution and of the sharded chain and PLONK proves), the card
+line, and the result line. Any failure exits non-zero before the result line. Imports neither
 JAX nor the JAX package ``tpusnark``: the port stands on its own host layer.
 """
 
@@ -121,6 +137,7 @@ import re
 import subprocess
 import sys
 import time
+from collections import namedtuple
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 LOG2_CONSTRAINTS = 17
@@ -217,6 +234,10 @@ SETUP_ONLY_OPS = ("mul", "add", "sub", "neg", "from_mont")
 # the Fp4 one of the BLS24 curves: the BW6 curves, whose G2 lies over Fp,
 # have no add and no sub instance, and their neg is OFF_PATH_OPS above).
 
+
+# a circuit, its keys and assignment, a proof and the seed of its rng (phases
+# 5, 8 and 9 hand theirs to phase 11)
+Proved = namedtuple("Proved", "cs pk vk assign proof seed")
 
 _POOL = None  # the verifier processes, once started
 
@@ -1294,13 +1315,14 @@ def phase_groth16(torch, dev, curve, pool, cs, assign, compile_s):
     peak = torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else float("nan")
     wrong = [(assign["y"] + 1) % cs.modulus]
     pending = submit_verdicts(pool, curve, proof, vk, [assign["y"]], wrong)
+    proved = Proved(cs, pk, vk, assign, proof, SEED + 1)
     say(
         f"[5 groth16] {curve}: {len(cs.constraints)} constraints, {cs.n_wires} wires, domain "
         f"2^{pk.domain_n.bit_length() - 1}: proved | "
         + " ".join(f"{k}={v:.3f}s" for k, v in times.items())
         + f" | peak device memory {peak:.3f} GB"
     )
-    return setup_launches, launches, pending
+    return setup_launches, launches, pending, proved
 
 
 def check_launches(curve, setup_only, off_path, setup_launches, launches):
@@ -1597,6 +1619,7 @@ def phase_wide_prove(torch, dev, pool, setup_only, off_path):
     if _proof_image(proofs["device"]) != _proof_image(proofs["host"]):
         fail("the device and host branches gave different proofs of the wide circuit")
     proof = proofs["device"]
+    wide = Proved(cs, pk, vk, assign, proof, SEED + 3)
     if len(proof.commitments) != 1 or proof.commitments[0] is None or proof.commitment_pok is None:
         fail("the wide circuit's proof carries no commitment")
     # the branches the shape rule gives: the host branch's prove launches B1
@@ -1636,7 +1659,7 @@ def phase_wide_prove(torch, dev, pool, setup_only, off_path):
         fail("the commit circuit's proof carries another commitment than the prover's")
     pending += submit_verdicts(pool, curve, proof, vk, [pub, y], [pub, (y + 1) % p])
     say(f"[8 commit] bn254: tests/test_commit.py's circuit proved on {dev.type}")
-    return solve_launches, launches["device"], pending
+    return solve_launches, launches["device"], pending, wide
 
 
 # ---------------------------------------------------------------- phase 9
@@ -1853,6 +1876,7 @@ def phase_plonk(torch, dev, pool):
         check_plonk_launches("prove", launches, n, 0)
     peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else float("nan")
     pending = submit_plonk_verdicts(pool, proof, vk, [assign["y"]], [(assign["y"] + 1) % R])
+    chain = Proved(cs, pk, vk, assign, proof, SEED + 11 + PLONK_PROVES - 1)
     say(
         f"[9 plonk] bn254: {cs.n_gates} gates, {cs.n_wires} wires, domain 2^{PLONK_LOG2}: set up and proved | "
         + " ".join(f"{k}={v:.4f}s" for k, v in times.items())
@@ -1881,7 +1905,7 @@ def phase_plonk(torch, dev, pool):
         fail(f"PLONK commit prove: {ntt} NTT pass launches, not {plonk_launches_expected(pk.domain_n, 1, 'prove')}")
     pending += submit_plonk_verdicts(pool, proof, vk, [9], [10])
     say(f"[9 commit] bn254: tests/test_plonk_commit.py's circuit (domain {pk.domain_n}) proved on {dev.type}")
-    return setup_launches, launches, pending
+    return setup_launches, launches, pending, (chain, vk)
 
 
 # ---------------------------------------------------------------- phase 10
@@ -2200,6 +2224,322 @@ def collect_ceremony(state, pending):
     collect_verdicts("bn254", f"{state['power']} ceremony", pending)
 
 
+# ---------------------------------------------------------------- phase 11
+# Sharding over a device list (tpusnark_torch/parallel/sharding.py,
+# backend/groth16/sharded.py, backend/plonk/sharded.py): SHARDS shards of
+# card 0, and (e) one shard a card where torch sees several. MSMs at
+# 2^SHARD_LOG2 points in both groups, .many at k = SHARD_MANY_K, NTTs at
+# each of SHARD_NTT_LOG2; the proves on the keys of phases 5, 8 and 9.
+SHARDS = 4
+SHARD_LOG2 = 17
+SHARD_NTT_LOG2 = (17, 20)
+SHARD_MANY_K = 3
+SHARD_WARM = 2  # warm proves, sharded and unsharded in turns
+# the instances over BN254 each sharded path must launch: the MSMs' strip,
+# scan-step and Horner kernels and the tree's pointwise adds; the NTT's pass
+# kernel and B1; the Groth16 prove all of them and B2, PLONK its G1 ones
+_SHARD_MSM = tuple(f"{g}_{op}[bn254]" for g in ("g1", "g2") for op in ("strip_mixed", "strip", "scan_step", "horner", "add"))
+SHARD_OPS = {
+    "msm": _SHARD_MSM,
+    "ntt": ("ntt_stages[bn254_fr]", "mul[bn254_fr]"),
+    "groth16": ("ntt_stages[bn254_fr]", "mul[bn254_fr]", "from_mont[bn254_fr]") + _SHARD_MSM,
+    "plonk": ("ntt_stages[bn254_fr]", "mul[bn254_fr]", "from_mont[bn254_fr]")
+    + tuple(k for k in _SHARD_MSM if k.startswith("g1")),
+}
+
+
+def check_shard_launches(what: str, kind: str, launches: dict) -> None:
+    """Every instance of the sharded path ran, and nothing over another
+    curve."""
+    from tpusnark_torch import kernels
+
+    idle = [k for k in SHARD_OPS[kind] if launches[k] <= 0]
+    if idle:
+        fail(f"{what}: kernels of the sharded path never launched: {idle}")
+    other = [k for k, v in launches.items() if v and k not in kernels.instances("bn254")]
+    if other:
+        fail(f"{what}: kernels of another curve ran: {other}")
+
+
+def _wall(torch, devices, fn):
+    """(fn(), seconds) with every device of the list synchronised."""
+    for d in set(devices):
+        torch.cuda.synchronize(d)
+    t0 = time.perf_counter()
+    out = fn()
+    for d in set(devices):
+        torch.cuda.synchronize(d)
+    return out, time.perf_counter() - t0
+
+
+def card_points(torch, dev, group: str, n: int, seed: int):
+    """n points of BN254's G1 or G2 made on the card, as setup makes its keys
+    (FixedBaseMul of seeded scalars, then to_affine); lanes 0 and 1 have the
+    scalar 0, so they are infinity inputs."""
+    from tpusnark_torch.backend.groth16.setup import to_affine
+    from tpusnark_torch.curves.batch_mul import FixedBaseMul, g1_generator_ladder, g2_generator_ladder
+    from tpusnark_torch.curves.config import get_curve
+    from tpusnark_torch.curves.tcurve import curve_ops
+    from tpusnark_torch.fields.tfield import get_field
+
+    cfg = get_curve("bn254")
+    fp, fr = get_field(cfg.fp_spec), get_field(cfg.fr_spec)
+    ops = curve_ops("bn254")[0 if group == "g1" else 1]
+    mul = FixedBaseMul(ops, fr)
+    ladder = (g1_generator_ladder if group == "g1" else g2_generator_ladder)(fp, mul.n_bits, "bn254", dev)
+    rng = random.Random(seed)
+    scalars = [0, 0] + [rng.randrange(1, fr.modulus) for _ in range(n - 2)]
+    return to_affine(ops, mul(ladder, fr.encode(scalars, mont=False, device=dev)))
+
+
+def card_scalars(fr, dev, shape, seed: int):
+    """Seeded normal-form scalars (words, *shape): the first four 0, 0, 1
+    and r - 1 (a zero digit run, the smallest and the largest scalar)."""
+    rng = random.Random(seed)
+    n = 1
+    for d in shape:
+        n *= d
+    vals = [0, 0, 1, fr.modulus - 1] + [rng.randrange(fr.modulus) for _ in range(n - 4)]
+    return fr.encode(vals, mont=False, device=dev).view(fr.n, *shape)
+
+
+def phase_shard_msm(torch, devices, tag: str):
+    """(a) ShardedMSM over BN254 at 2^SHARD_LOG2 points, G1 and G2, and its
+    .many at k = SHARD_MANY_K: each equals the unsharded MSM point for
+    point; warm times of both. Returns the launches of the sharded calls."""
+    from tpusnark_torch import kernels
+    from tpusnark_torch.curves.config import get_curve
+    from tpusnark_torch.curves.encoding import g1_from_device_proj, g2_from_device_proj
+    from tpusnark_torch.fields.tfield import get_field
+    from tpusnark_torch.msm.pippenger import get_msm_for, get_msm_many_for
+    from tpusnark_torch.parallel.sharding import ShardedMSM
+
+    cfg = get_curve("bn254")
+    fp, fr = get_field(cfg.fp_spec), get_field(cfg.fr_spec)
+    d0, n, k = devices[0], 1 << SHARD_LOG2, SHARD_MANY_K
+    launches = dict.fromkeys(kernels.LAUNCHES, 0)
+    for i, group in enumerate(("g1", "g2")):
+        decode = (lambda pt: g1_from_device_proj(pt, fp)) if group == "g1" else (
+            lambda pt: g2_from_device_proj(pt, fp, cfg.host.Fp2, cfg.fp2_q))
+        pts = card_points(torch, d0, group, n, SEED + 30 + i)
+        sc = card_scalars(fr, d0, (n,), SEED + 32 + i)
+        sck = card_scalars(fr, d0, (k, n), SEED + 34 + i)
+        smsm = ShardedMSM(get_msm_for(group, n // len(devices), "bn254"), devices)
+        table = smsm.shard_points(pts)
+        single, many = get_msm_for(group, n, "bn254"), get_msm_many_for(group, n, k, "bn254")
+        kernels.reset_launches()  # the sharded path
+        got, got_k = decode(smsm(table, sc)), decode(smsm.many(table, sck))
+        for name, v in kernels.LAUNCHES.items():
+            launches[name] += v
+        if got != decode(single(pts, sc)):
+            fail(f"[11 {tag}] ShardedMSM over bn254 {group} at 2^{SHARD_LOG2} differs from the MSM")
+        if got_k != decode(many.many(pts, sck)):
+            fail(f"[11 {tag}] ShardedMSM.many (k={k}) over bn254 {group} differs from MSM.many")
+        times = {}
+        for name, fn in (
+            ("sharded", lambda: smsm(table, sc)),
+            ("unsharded", lambda: single(pts, sc)),
+            ("sharded", lambda: smsm(table, sc)),
+            ("unsharded", lambda: single(pts, sc)),
+            ("sharded many", lambda: smsm.many(table, sck)),
+            ("unsharded many", lambda: many.many(pts, sck)),
+        ):
+            times.setdefault(name, []).append(_wall(torch, devices, fn)[1])
+        say(
+            f"[11 {tag} msm] bn254 {group} at 2^{SHARD_LOG2} over {len(devices)} shards "
+            f"(c={smsm.msm.c} a shard, c={single.c} unsharded): equals the MSM point for point, and .many at k={k} "
+            f"(c={many.c} unsharded) MSM.many | warm s: "
+            + " ".join(f"{name} {','.join(f'{t:.4f}' for t in ts)}" for name, ts in times.items())
+        )
+        del pts, table, sc, sck
+    check_shard_launches(f"[11 {tag}] ShardedMSM", "msm", launches)
+    return launches
+
+
+def phase_shard_ntt(torch, devices, np_rng, tag: str):
+    """(b) ShardedNTT over BN254 fr at each size of SHARD_NTT_LOG2: ntt,
+    intt, ntt_coset and intt_coset equal the port's NTT on every lane mod p;
+    one ntt of each timed. Returns the launches of the sharded transforms."""
+    from tpusnark_torch import kernels
+    from tpusnark_torch.fields.spec import BN254_FR
+    from tpusnark_torch.parallel.sharding import ShardedNTT
+    from tpusnark_torch.poly.ntt import get_ntt
+
+    names = ("ntt", "intt", "ntt_coset", "intt_coset")
+    launches = dict.fromkeys(kernels.LAUNCHES, 0)
+    for log2n in SHARD_NTT_LOG2:
+        n = 1 << log2n
+        sntt, ntt = ShardedNTT(BN254_FR, n, devices), get_ntt(BN254_FR, n, devices[0])
+        fr = ntt.field
+        x = torch.from_numpy(_lazy_words(np_rng, n, fr.modulus, fr.n)).to(devices[0])
+        kernels.reset_launches()  # the sharded path
+        got = {name: getattr(sntt, name)(x) for name in names}
+        for name, v in kernels.LAUNCHES.items():
+            launches[name] += v
+        bad = [name for name in names if not torch.equal(fr.canon(got[name]), fr.canon(getattr(ntt, name)(x)))]
+        if bad:
+            fail(f"[11 {tag}] ShardedNTT at 2^{log2n} differs from the NTT: {bad}")
+        s_ms = _time_cuda(torch, lambda: sntt.ntt(x), 10)
+        u_ms = _time_cuda(torch, lambda: ntt.ntt(x), 10)
+        say(
+            f"[11 {tag} ntt] bn254 fr 2^{log2n} over {len(devices)} shards (n1={sntt.n1}, n2={sntt.n2}): "
+            f"ntt, intt, ntt_coset and intt_coset equal the NTT on every lane | one ntt: sharded {s_ms:.4f} ms, "
+            f"unsharded {u_ms:.4f} ms"
+        )
+        del sntt, x, got
+    check_shard_launches(f"[11 {tag}] ShardedNTT", "ntt", launches)
+    return launches
+
+
+def phase_shard_groth16(torch, devices, pool, cases, tag: str, warm: bool):
+    """(c) prove_sharded on phase 5's chain and phase 8's wide circuit with
+    their keys: under the proof's own seeded rng it equals the unsharded
+    proof point for point, and the workers give its verdicts. With `warm`,
+    the chain is proved SHARD_WARM more times each way, in turns, with
+    phase times. Returns (launches of the last warm sharded prove, pending)."""
+    from tpusnark_torch import kernels
+    from tpusnark_torch.backend.groth16 import prove
+    from tpusnark_torch.backend.groth16.sharded import prove_sharded
+
+    pending, launches = [], None
+    for label, case in cases:
+        p = case.cs.modulus
+        prng = random.Random(case.seed)
+        phases = {}
+        proof, cold = _wall(
+            torch,
+            devices,
+            lambda: prove_sharded(
+                case.cs, case.pk, case.assign, devices, rng=lambda: prng.randrange(p), timings=phases
+            ),
+        )
+        if _proof_image(proof) != _proof_image(case.proof):
+            fail(f"[11 {tag}] the sharded proof of the {label} differs from the unsharded one")
+        y = case.assign["y"]
+        pending += submit_verdicts(pool, "bn254", proof, case.vk, [y], [(y + 1) % p])
+        say(
+            f"[11 {tag} groth16] {label}: {len(case.cs.constraints)} constraints over {len(devices)} shards: equals "
+            f"the unsharded proof point for point | first {cold:.4f} s: "
+            + " ".join(f"{k}={v:.4f}s" for k, v in phases.items())
+        )
+        if not warm or label != "chain":
+            continue
+        provers = {
+            "unsharded": lambda rng, ph: prove(
+                case.cs, case.pk, case.assign, rng=rng, timings=ph, device=devices[0]
+            ),
+            "sharded": lambda rng, ph: prove_sharded(case.cs, case.pk, case.assign, devices, rng=rng, timings=ph),
+        }
+        rows = []
+        for _ in range(SHARD_WARM):
+            for name, run_prove in provers.items():
+                prng = random.Random(case.seed)
+                phases = {}
+                kernels.reset_launches()  # the sharded path: one warm prove
+                proof, t = _wall(torch, devices, lambda: run_prove(lambda: prng.randrange(p), phases))
+                if name == "sharded":
+                    launches = dict(kernels.LAUNCHES)
+                if _proof_image(proof) != _proof_image(case.proof):
+                    fail(f"[11 {tag}] a warm {name} proof of the chain differs")
+                rows.append(f"{name} {t:.4f} s (" + " ".join(f"{k}={v:.4f}" for k, v in phases.items()) + ")")
+        for row in rows:
+            say(f"[11 {tag} warm] bn254 chain 2^{LOG2_CONSTRAINTS}: {row}")
+        check_shard_launches(f"[11 {tag}] sharded Groth16 prove", "groth16", launches)
+        say(f"[11 {tag} launches] sharded Groth16 prove: " + _fmt({k: v for k, v in launches.items() if v}))
+    return launches, pending
+
+
+def phase_shard_plonk(torch, devices, pool, case, commit_vk):
+    """(d) PLONK's prove_sharded on phase 9's circuit with its keys: equal to
+    its last warm proof field for field under the same rng, the workers'
+    verdicts, a proof_to_bytes round trip, export_solidity and the 26-word
+    calldata, and the export refusing phase 9's BSB22 key; warm sharded and
+    unsharded proves in turns. Returns (launches of a sharded prove,
+    pending)."""
+    import dataclasses
+
+    from tpusnark_torch import kernels
+    from tpusnark_torch.backend import plonk
+    from tpusnark_torch.backend.plonk.marshal import proof_from_bytes, proof_to_bytes
+    from tpusnark_torch.backend.plonk.sharded import prove_sharded
+    from tpusnark_torch.backend.plonk.solidity import export_solidity, proof_to_solidity_calldata
+    from tpusnark_torch.curves.ref import R
+
+    def same(a, b):
+        return all(getattr(a, f.name) == getattr(b, f.name) for f in dataclasses.fields(b))
+
+    provers = {
+        "sharded": lambda rng, ph: prove_sharded(case.cs, case.pk, case.assign, devices, rng=rng, timings=ph),
+        "unsharded": lambda rng, ph: plonk.prove(case.cs, case.pk, case.assign, rng=rng, timings=ph),
+    }
+    rows, launches = [], None
+    for i in range(1 + SHARD_WARM):
+        for name in ("sharded", "unsharded") if i else ("sharded",):
+            prng = random.Random(case.seed)
+            phases = {}
+            kernels.reset_launches()  # the sharded path: one prove
+            proof, t = _wall(torch, devices, lambda: provers[name](lambda: prng.randrange(1, R), phases))
+            if name == "sharded":
+                launches = dict(kernels.LAUNCHES)
+            if not same(proof, case.proof):
+                fail(f"[11 plonk] a {name} PLONK proof differs from phase 9's under the same rng")
+            rows.append(f"{'first ' if not i else ''}{name} {t:.4f} s (" + " ".join(
+                f"{k}={v:.4f}" for k, v in phases.items()) + ")")
+    check_shard_launches("[11] sharded PLONK prove", "plonk", launches)
+    pending = submit_plonk_verdicts(pool, proof, case.vk, [case.assign["y"]], [(case.assign["y"] + 1) % R])
+    data = proof_to_bytes(proof)
+    if not same(proof_from_bytes(data), proof):
+        fail("[11 plonk] proof_from_bytes(proof_to_bytes(proof)) is not the proof")
+    src, calldata = export_solidity(case.vk), proof_to_solidity_calldata(proof)
+    if "contract PlonkVerifier" not in src or len(calldata) != 26:
+        fail(f"[11 plonk] the Solidity export or its calldata ({len(calldata)} words) is malformed")
+    try:
+        export_solidity(commit_vk)
+        fail("[11 plonk] export_solidity took the BSB22 key")
+    except NotImplementedError:
+        pass
+    say(
+        f"[11 plonk] bn254 2^{PLONK_LOG2} over {len(devices)} shards: equals the unsharded proof field for field; "
+        f"{len(data)} proof bytes round-trip; Solidity export {len(src)} characters, calldata 26 words; the export "
+        "refuses the BSB22 key"
+    )
+    for row in rows:
+        say(f"[11 plonk warm] {row}")
+    say("[11 launches] sharded PLONK prove: " + _fmt({k: v for k, v in launches.items() if v}))
+    return launches, pending
+
+
+def phase_shard(torch, card, pool, np_rng, chain, wide, plonk_case, plonk_commit_vk):
+    """Phase 11: (a)-(d) over SHARDS shards of card 0; (e) (a)-(c) over one
+    shard a card where torch sees several. Returns the launches of the
+    sharded Groth16 and PLONK proves, and the pending verdicts."""
+    devices = (torch.device("cuda", 0),) * SHARDS
+    say(f"[11 shard] {SHARDS} shards of cuda:0 | {card}")
+    phase_shard_msm(torch, devices, "one card")
+    phase_shard_ntt(torch, devices, np_rng, "one card")
+    g16_launches, pending = phase_shard_groth16(
+        torch, devices, pool, (("chain", chain), ("wide circuit", wide)), "one card", warm=True
+    )
+    plonk_launches, more = phase_shard_plonk(torch, devices, pool, plonk_case, plonk_commit_vk)
+    pending += more
+    count = torch.cuda.device_count()
+    if count > 1:
+        cards = tuple(torch.device("cuda", i) for i in range(count))
+        say(f"[11 multi-card] (e) one shard on each of {count} cards")
+        phase_shard_msm(torch, cards, "multi-card")
+        phase_shard_ntt(torch, cards, np_rng, "multi-card")
+        pending += phase_shard_groth16(
+            torch, cards, pool, (("chain", chain), ("wide circuit", wide)), "multi-card", warm=False
+        )[1]
+    else:
+        say(
+            "[11 multi-card] (e) did not run: torch sees 1 card, so the shards on distinct cards (peer copies, "
+            "each launch with its tensor's card current, the NTT pass kernel's shared-memory attribute on each "
+            "card) are not exercised"
+        )
+    return g16_launches, plonk_launches, pending
+
+
 # ---------------------------------------------------------------- main
 def main() -> None:
     try:
@@ -2229,7 +2569,12 @@ def run() -> None:
         compile_s = time.perf_counter() - t0
         checks.update(phase_kernels(torch, curve, np_rng, cs.n_wires))
         phase_msm(torch, dev, curve)
-        setup_launches, launches, pending[curve] = phase_groth16(torch, dev, curve, pool, cs, assign, compile_s)
+        setup_launches, launches, pending[curve], proved = phase_groth16(
+            torch, dev, curve, pool, cs, assign, compile_s
+        )
+        if curve == "bn254":
+            chain = proved  # phase 11 proves it again, sharded
+        del proved
         runs[curve] = (setup_launches, launches)
         check_launches(curve, setup_only, off_path, setup_launches, launches)
         if prefer_device(cs):  # decided (and cached on cs) by the prove
@@ -2243,21 +2588,27 @@ def run() -> None:
     ceremony = phase_ceremony_start(torch, dev, pool)
     phase_ntt_large(torch, dev, np_rng)
     wide_solve = {curve: phase_wide_solve(torch, dev, curve) for curve in CURVES}
-    _, wide_prove_launches, pending["wide"] = phase_wide_prove(
+    _, wide_prove_launches, pending["wide"], wide = phase_wide_prove(
         torch, dev, pool, setup_only, off_path
     )
     say(
         "[8 branch] the chain's proves took the host solver on every curve (phase 6: B1 and B2 over fr "
         f"{B1_PER_PROVE} and {B2_PER_PROVE} times), the wide circuit's default prove the device solver"
     )
-    plonk_setup_launches, plonk_launches, pending["plonk"] = phase_plonk(torch, dev, pool)
+    plonk_setup_launches, plonk_launches, pending["plonk"], (plonk_chain_proved, plonk_commit_vk) = phase_plonk(
+        torch, dev, pool
+    )
     ceremony_launches = phase_ceremony_full(torch, dev)
     pending["ceremony"] = phase_ceremony_finish(torch, dev, pool, ceremony)
+    shard_launches, shard_plonk_launches, pending["shard"] = phase_shard(
+        torch, card, pool, np_rng, chain, wide, plonk_chain_proved, plonk_commit_vk
+    )
     for curve in CURVES:
         collect_verdicts(curve, LOG2_CONSTRAINTS, pending[curve])
     collect_verdicts("bn254", f"{LOG2_CONSTRAINTS} wide and commit", pending["wide"])
     collect_verdicts("bn254", f"{PLONK_LOG2} PLONK and PLONK commit", pending["plonk"])
     collect_ceremony(ceremony, pending["ceremony"])
+    collect_verdicts("bn254", f"{LOG2_CONSTRAINTS} sharded chain, wide and PLONK", pending["shard"])
     stop_workers()
     for mod in ("jax", "tpusnark"):
         if mod in sys.modules:
@@ -2294,6 +2645,8 @@ def run() -> None:
                             "launches_plonk_prove": plonk_launches[name],
                             "launches_plonk_setup": plonk_setup_launches[name],
                             "launches_ceremony": ceremony_launches[name],
+                            "launches_sharded_prove": shard_launches[name],
+                            "launches_sharded_plonk": shard_plonk_launches[name],
                         }
                         if curve == "bn254"
                         else {}
@@ -2302,7 +2655,7 @@ def run() -> None:
                     **({"absorbs": ABSORBS[op]} if (op := name.split("[")[0]) in ABSORBS else {}),
                 )
             )
-    say(f"[11 done] {time.perf_counter() - t_start:.1f} s in all")
+    say(f"[12 done] {time.perf_counter() - t_start:.1f} s in all")
     say(json.dumps({"kernels": rows}))
     say(card)
     say(

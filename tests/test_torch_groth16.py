@@ -186,6 +186,17 @@ def test_proof_matches_tpusnark_and_verifies(keys):
         assert not verify(proof, vk_t, [36]), name
 
 
+def test_dummy_setup_equals_tpusnark():
+    """dummy_setup (gnark's DummySetup): the same seeded draw over BN254's r
+    as tpusnark's, so the same key, point for point."""
+    r = get_curve("bn254").host.R
+    ours = import_module("tpusnark_torch.backend.groth16.setup").dummy_setup(cubic_circuit(r, TBuilder), device="cpu")
+    theirs = import_module("tpusnark.backend.groth16.setup").dummy_setup(cubic_circuit(r), use_device=False)
+    for name in PK_FIELDS:
+        assert getattr(ours, name) == getattr(theirs, name), name
+    assert (ours.curve, ours.domain_n, ours.k_wires) == ("bn254", theirs.domain_n, theirs.k_wires)
+
+
 def test_commitment_circuits_are_refused(keys):
     """BSB22 commitments are BN254-only, as in tpusnark: over BN254 a
     commitment circuit sets up, proves and verifies (tests/

@@ -479,13 +479,20 @@ def scs_image(cs):
     )
 
 
-PLONK_COPIES = ("utils.transcript", "constraint.scs", "frontend.plonk_builder", "backend.plonk.verify")
+PLONK_COPIES = (
+    "utils.transcript",
+    "constraint.scs",
+    "frontend.plonk_builder",
+    "backend.plonk.verify",
+    "backend.plonk.marshal",
+    "backend.plonk.solidity",
+)
 
 
 @pytest.mark.parametrize("name", PLONK_COPIES)
 def test_plonk_host_modules_are_tpusnark_code(name):
     """The PLONK copies (transcript, sparse constraint system, builder,
-    verifier) are tpusnark's code."""
+    verifier, proof bytes, Solidity export) are tpusnark's code."""
     ours = import_module(f"tpusnark_torch.{name}")
     theirs = import_module(f"tpusnark.{name}")
     assert code_without_docstrings(ours) == code_without_docstrings(theirs)

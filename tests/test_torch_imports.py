@@ -45,7 +45,9 @@ IMPORT_ALL = BLOCK + textwrap.dedent(
                  "utils.transcript", "constraint.scs", "frontend.plonk_builder", "poly.scan", "poly.iop",
                  "poly.kzg", "backend.plonk.keys", "backend.plonk.setup", "backend.plonk.prove",
                  "backend.plonk.verify", "curves.hash_to_g2", "backend.groth16.mpcsetup",
-                 "backend.groth16.marshal", "backend.groth16.solidity"):
+                 "backend.groth16.marshal", "backend.groth16.solidity", "backend.plonk.marshal",
+                 "backend.plonk.solidity", "parallel.sharding", "parallel.dryrun", "backend.groth16.sharded",
+                 "backend.plonk.sharded"):
         assert "tpusnark_torch." + name in names, name
     assert "tpusnark_torch._host" not in names
     assert sys.modules["jax"] is None and sys.modules["tpusnark"] is None

@@ -183,6 +183,21 @@ def test_var_base_mul_on_bls12_381_g1_equals_the_host():
     assert tenc.g1_from_device_proj(out, fp) == [G.mul(pt, s) for pt, s in zip(points, scalars)]
 
 
+def test_var_base_mul_on_bls24_315_g2_over_fp4_equals_the_host():
+    """G2 over Fp4 (BLS24-315): three lanes, a seeded scalar, r - 1 and an
+    infinity input, against the host module's G2.mul."""
+    cfg = get_curve("bls24-315")
+    fp, fr, host = get_field(cfg.fp_spec), get_field(cfg.fr_spec), cfg.host
+    rng = random.Random(13)
+    scalars = [rng.randrange(host.R), host.R - 1, rng.randrange(host.R)]
+    points = [host.G2.mul(host.G2.generator(), rng.randrange(1, host.R)) for _ in scalars]
+    points[2] = None
+    out = VarBaseMul(curve_ops("bls24-315")[1], fr)(tenc.g4_to_device(points, fp), fr.encode(scalars, mont=False))
+    ours = tenc.g4_from_device_proj(out, fp, host.Fp4, host.Fp2)
+    assert ours == [host.G2.mul(pt, s) for pt, s in zip(points, scalars)]
+    assert ours[1] == host.G2.neg(points[1]) and ours[2] is None
+
+
 # ------------------------------------------------------- the seeded ceremony
 def key_image(keys, fields):
     return [getattr(keys, f) for f in fields]

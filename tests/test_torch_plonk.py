@@ -41,6 +41,8 @@ torch.set_num_threads(1)  # the suite's workers fill the cores already
 # the plonk packages export the function prove, which hides the submodule of
 # that name from "import ... as"
 jprove, tprove = (import_module(f"{pkg}.backend.plonk.prove") for pkg in ("tpusnark", "tpusnark_torch"))
+jmarshal, tmarshal = (import_module(f"{pkg}.backend.plonk.marshal") for pkg in ("tpusnark", "tpusnark_torch"))
+jsolidity, tsolidity = (import_module(f"{pkg}.backend.plonk.solidity") for pkg in ("tpusnark", "tpusnark_torch"))
 
 P = BN254_FR.modulus
 TAU = 123456789
@@ -120,6 +122,39 @@ def test_tpusnark_verifier_accepts_the_port_proof(artifacts):
     _, _, proof, _, _, _, jvk, _ = artifacts
     assert jplonk.verify(proof, jvk, [35])
     assert not jplonk.verify(proof, jvk, [36])
+
+
+def test_proof_bytes_equal_tpusnark(artifacts):
+    """gnark's byte layout: the port's proof_to_bytes of its proof equals
+    tpusnark's of its own, and proof_from_bytes gives the proof back."""
+    _, _, proof, _, _, _, _, jproof = artifacts
+    data = tmarshal.proof_to_bytes(proof)
+    assert data == jmarshal.proof_to_bytes(jproof)
+    back = tmarshal.proof_from_bytes(data)
+    assert type(back) is tplonk.PlonkProof
+    for f in dataclasses.fields(jproof):
+        assert getattr(back, f.name) == getattr(jmarshal.proof_from_bytes(data), f.name) == getattr(proof, f.name)
+
+
+def test_solidity_export_and_calldata_equal_tpusnark(artifacts):
+    _, vk, proof, _, _, _, jvk, jproof = artifacts
+    src = tsolidity.export_solidity(vk)
+    assert src == jsolidity.export_solidity(jvk)
+    calldata = tsolidity.proof_to_solidity_calldata(proof)
+    assert calldata == jsolidity.proof_to_solidity_calldata(jproof) and len(calldata) == 26
+
+
+def test_solidity_export_refuses_bsb22(artifacts):
+    """tests/test_plonk_solidity.py:225: a BSB22 verifying key (and proof)
+    has no Solidity form yet; both packages refuse it."""
+    _, vk, proof, _, _, _, _, _ = artifacts
+    bsb22_vk = dataclasses.replace(vk, qcp=[G1.generator()], commitment_constraint_indexes=[0])
+    bsb22_proof = dataclasses.replace(proof, bsb22_commitments=[G1.generator()])
+    for mod in (tsolidity, jsolidity):
+        with pytest.raises(NotImplementedError):
+            mod.export_solidity(bsb22_vk)
+        with pytest.raises(NotImplementedError):
+            mod.proof_to_solidity_calldata(bsb22_proof)
 
 
 def ints(n, seed):

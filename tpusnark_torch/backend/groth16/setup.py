@@ -21,9 +21,11 @@ after the toxic waste.
 
 from __future__ import annotations
 
+import random
 import secrets
 
 from ...constraint.system import ConstraintSystem
+from ...curves import ref
 from ...curves.batch_mul import FixedBaseMul, g1_generator_ladder, g2_generator_ladder
 from ...curves.pedersen import pedersen_setup
 from ...curves.tcurve import curve_ops, small_mul
@@ -99,6 +101,18 @@ def k_pk_wires_for(cs: ConstraintSystem) -> list[int]:
         for w in range(cs.n_public, cs.n_wires)
         if w not in cw_set and w not in committed
     ]
+
+
+def dummy_setup(cs: ConstraintSystem, device="cuda"):
+    """ProvingKey with the right shapes but meaningless values, for
+    benchmarking the prover without a trusted setup (gnark's DummySetup,
+    gnark/backend/groth16/bn254/setup.go:482), computed on `device`: the
+    card, unless the caller passes "cpu". The seeded draw over BN254's r of
+    tpusnark's dummy_setup, so the keys equal tpusnark's. Proofs made with
+    it do NOT verify."""
+    rng_state = random.Random(0xD00D)
+    pk, _vk = setup(cs, rng=lambda: rng_state.randrange(1, ref.R), device=device)
+    return pk
 
 
 def _fp2_inv(fa2, x):

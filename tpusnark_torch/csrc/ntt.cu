@@ -219,6 +219,9 @@ __global__ void __launch_bounds__(stage_threads(words_of(F)))
 }
 
 constexpr int THREADS = 256;
+// the devices a process may launch the pass kernel on (its attribute is set
+// once on each)
+constexpr int TS_MAX_DEVICES = 64;
 
 template <int F>
 int launch_butterfly(const void* e, const void* o, const void* w, void* out_a, void* out_b,
@@ -249,10 +252,19 @@ int launch_stages(const void* x, void* out, const void* table, long lanes, long 
   // the groups tile the lanes: rows of n = 2^k >= 2^(s0 + m)
   if ((1L << (lg_g + m)) > ELEMS || (lanes & ((1L << (s0 + m)) - 1)) != 0) return (int)cudaErrorInvalidValue;
   // above 48 KB a block's shared memory must be asked for, once per
-  // instance; a refused launch never runs, so the caller gets its error
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      k_ntt_stages<F>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sizeof(uint32_t) * N * ELEMS);
-  if (attr != cudaSuccess) return (int)attr;
+  // instance on each device (the attribute is the device's); a refused
+  // launch never runs, so the caller gets its error
+  static bool attr_set[TS_MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= TS_MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (!attr_set[dev]) {
+    err = cudaFuncSetAttribute(k_ntt_stages<F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)sizeof(uint32_t) * N * ELEMS);
+    if (err != cudaSuccess) return (int)err;
+    attr_set[dev] = true;
+  }
   const long blocks = (groups + (1L << lg_g) - 1) >> lg_g;
   k_ntt_stages<F><<<(unsigned)blocks, stage_threads(N), bytes, st>>>(
       (const uint32_t*)x, (uint32_t*)out, (const uint32_t*)table, lanes, tw_cols, s0, m, lg_g);

@@ -17,7 +17,8 @@ any stride, and an operand expanded from one element), with the word count of th
 BLS12-377 fp and BW6-761 fr, 20 for BW6-633 fp, 24 for BW6-761 fp). It checks them, and
 refuses a field or curve without kernels before anything is built; it
 allocates its outputs with ``torch.empty`` (the NTT pass may write into its
-input instead), launches on the current stream,
+input instead), launches on the current stream of its operands' card with
+that card current (the operands may lie on any card, all on the same one),
 raises if the launch failed, and adds one to ``LAUNCHES[name]``. Instance
 names carry the field (``mul[bls12_381_fp]``) or the curve
 (``g2_add_mixed[bls12-381]``, ``g1_strip_mixed[bn254]``). The CPU
@@ -305,12 +306,12 @@ def _check(t: torch.Tensor, words: int, n: int | None = None, what: str = "opera
     return t.shape[1]
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def _launch(name: str, fn, *args) -> None:
-    rc = fn(*args)
+def _launch(name: str, like: torch.Tensor, fn, *args) -> None:
+    """Call the entry point `fn` with `args` and the current stream of the
+    card that `like` lies on, with that card current: a kernel launch goes to
+    the runtime's current device, which need not be the tensor's."""
+    with torch.cuda.device(like.device):
+        rc = fn(*args, torch.cuda.current_stream(like.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"kernel {name} failed to launch: CUDA error {rc}")
     LAUNCHES[name] += 1
@@ -359,10 +360,13 @@ def field_binary(op: str, spec, a: torch.Tensor, b: torch.Tensor) -> torch.Tenso
     sa, ba = _field_operand(a, words, None, f"{op} a")
     n = a.shape[1]
     sb, bb = _field_operand(b, words, n, f"{op} b")
+    if b.device != a.device:
+        raise ValueError(f"{op}: operands on {a.device} and {b.device}")
     out = torch.empty((words, n), dtype=torch.int32, device=a.device)
     if n:
         _launch(
             f"{op}[{spec.name}]",
+            a,
             _fn(f"ts_field_{op}"),
             fid,
             a.data_ptr(),
@@ -372,7 +376,6 @@ def field_binary(op: str, spec, a: torch.Tensor, b: torch.Tensor) -> torch.Tenso
             out.data_ptr(),
             n,
             ba | bb << 1,
-            _stream(a),
         )
     return out
 
@@ -385,7 +388,7 @@ def field_unary(op: str, spec, a: torch.Tensor) -> torch.Tensor:
     n = a.shape[1]
     out = torch.empty((words, n), dtype=torch.int32, device=a.device)
     if n:
-        _launch(f"{op}[{spec.name}]", _fn(f"ts_field_{op}"), fid, a.data_ptr(), sa, out.data_ptr(), n, ba, _stream(a))
+        _launch(f"{op}[{spec.name}]", a, _fn(f"ts_field_{op}"), fid, a.data_ptr(), sa, out.data_ptr(), n, ba)
     return out
 
 
@@ -408,6 +411,7 @@ def butterfly(spec, e, o, w):
     if n:
         _launch(
             f"butterfly[{spec.name}]",
+            e,
             lib.ts_ntt_butterfly,
             fid,
             e.data_ptr(),
@@ -416,7 +420,6 @@ def butterfly(spec, e, o, w):
             a.data_ptr(),
             b.data_ptr(),
             n,
-            _stream(e),
         )
     return a, b
 
@@ -432,9 +435,7 @@ def butterfly4(spec, x0, x1, x2, x3, w1, w2a, w2b):
     outs = tuple(torch.empty_like(x0) for _ in range(4))
     if n:
         ptrs = _ptr_array(ins + outs)
-        _launch(
-            f"butterfly4[{spec.name}]", lib.ts_ntt_butterfly4, fid, ctypes.addressof(ptrs), n, _stream(x0)
-        )
+        _launch(f"butterfly4[{spec.name}]", x0, lib.ts_ntt_butterfly4, fid, ctypes.addressof(ptrs), n)
     return outs
 
 
@@ -465,6 +466,8 @@ def ntt_stages(spec, x, table, n: int, s0: int, m: int, out=None):
     if not (m >= 1 and s0 >= 0 and s0 + m <= k and 1 << m <= elems):
         raise ValueError(f"ntt_stages: stages [{s0}, {s0 + m}) of {k}, at most {elems.bit_length() - 1} a pass")
     _check(table, words, n - 1, "ntt_stages table")
+    if table.device != x.device:
+        raise ValueError(f"ntt_stages: x on {x.device}, its table on {table.device}")
     if out is None:
         out = torch.empty_like(x)
     else:
@@ -475,6 +478,7 @@ def ntt_stages(spec, x, table, n: int, s0: int, m: int, out=None):
     lg_groups = min((elems >> m).bit_length(), (groups - 1).bit_length() + 1) - 1
     _launch(
         f"ntt_stages[{spec.name}]",
+        x,
         build().ts_ntt_stages,
         fid,
         x.data_ptr(),
@@ -485,7 +489,6 @@ def ntt_stages(spec, x, table, n: int, s0: int, m: int, out=None):
         s0,
         m,
         lg_groups,
-        _stream(x),
     )
     return out
 
@@ -538,6 +541,7 @@ def curve_op(op: str, g2: bool, fp_spec, ins, b3_words, inf=None):
         in_ptrs, out_ptrs = _ptr_array(ins), _ptr_array(outs)
         _launch(
             f"{'g2' if g2 else 'g1'}_{op}[{curve}]",
+            ins[0],
             getattr(lib, f"ts_curve_{_tag(fp_spec.name)}"),
             0 if op == "add" else 1,
             int(g2),
@@ -546,7 +550,6 @@ def curve_op(op: str, g2: bool, fp_spec, ins, b3_words, inf=None):
             None if inf is None else inf.data_ptr(),
             ctypes.addressof(b3),
             n,
-            _stream(ins[0]),
         )
     return outs
 
@@ -633,10 +636,10 @@ class MsmKernels:
             a.n[i] = v
         _launch(
             f"{self.group}_{op}[{self.curve}]",
+            like,
             getattr(build(), self._entry),
             MSM_KERNELS[op],
             ctypes.addressof(a),
-            _stream(like),
         )
 
     def _components(self, comps, coords: int, batch, what: str) -> None:

@@ -118,11 +118,31 @@ Then the sharded device layer (``tpusnark_torch/parallel``,
      9's BSB22 key; each sharded path's launches counted from zero (every
      kernel it must run); (e) (a)-(c) over the distinct cards where torch
      sees several, else one line saying that it did not run.
-Then one JSON line with every kernel instance (with, beside the chain's
+Then the port's examples and the rollup (``tpusnark_torch/examples``), over
+BN254:
+ 12. (a) the cubic, exponentiate and MiMC examples' main through Groth16 and
+     the PLONK example's through PLONK, each with a seeded rng, and the
+     SHA-256 gadget over one seeded 32-byte message (a 2^16 domain) set up
+     and proved with hashlib's digest as its public input; each proof
+     verified and a wrong public input rejected (in the workers), and each
+     one's solver branch printed; (b) the rollup at batch 31 over 32
+     accounts (depth 5): 1,034,160 constraints in a 2^20 domain, nothing
+     cut: compile time and cs.stats(), the operator's batch, a seeded setup
+     with its phase times (the card's fixed-base products apart from the
+     host's scalars, encode and decode), the shape rule's verdict, a first
+     prove and five warm proves, three on the default (device solver)
+     branch and two on the host solver, in turns, each with its phase
+     times, all under one rng and equal point for point; the device
+     solver's witness against the host solver's on every wire; every proof
+     verified with the two public roots and one rejected against root_after
+     + 1; the peak device memory after setup and after the proves; (c) the
+     launches of the first warm default-branch prove, counted from zero,
+     every kernel of the prove path among them.
+ 13. One JSON line with every kernel instance (with, beside the chain's
 prove launches, those of the 2^14 wide device solve and, for BN254, of the
 2^17 wide device-branch prove, of the PLONK prove and setup, of one 2^17
-phase-1 contribution and of the sharded chain and PLONK proves), the card
-line, and the result line. Any failure exits non-zero before the result line. Imports neither
+phase-1 contribution, of the sharded chain and PLONK proves and of a warm
+rollup prove), the card line, and the result line. Any failure exits non-zero before the result line. Imports neither
 JAX nor the JAX package ``tpusnark``: the port stands on its own host layer.
 """
 
@@ -2540,6 +2560,233 @@ def phase_shard(torch, card, pool, np_rng, chain, wide, plonk_case, plonk_commit
     return g16_launches, plonk_launches, pending
 
 
+# ---------------------------------------------------------------- phase 12
+# The port's examples (tpusnark_torch/examples) on the card: gnark's cubic,
+# exponentiate and MiMC examples through Groth16, its PLONK example, and
+# the SHA-256 gadget on one seeded 32-byte message; then the rollup at batch
+# 31 over 32 accounts (depth 5): 1,034,160 constraints in a 2^20 domain,
+# nothing cut.
+SHA_BYTES = 32
+SHA_LOG2 = 16
+ROLLUP_BATCH = 31
+ROLLUP_ACCOUNTS = 32
+ROLLUP_LOG2 = 20
+# the warm proves after the first, in turns: the default branch (the shape
+# rule sends the rollup to the device solver) and the host solver
+ROLLUP_TURNS = ("device", "host", "device", "host", "device")
+
+
+def _seeded(seed, lo=1):
+    """A seeded draw in [lo, r) over BN254's r."""
+    from tpusnark_torch.curves.ref import R
+
+    rng = random.Random(seed)
+    return lambda: rng.randrange(lo, R)
+
+
+def _branch(cs) -> str:
+    from tpusnark_torch.constraint.solver_torch import prefer_device
+
+    return "device" if prefer_device(cs) else "host"
+
+
+def sha256_circuit(n_bytes: int, seed: int):
+    """The SHA-256 gadget over n_bytes secret bytes (each range-checked to 8
+    bits), its digest equal to the public bytes d0..d31; the assignment of a
+    seeded message with hashlib's digest, and that digest."""
+    import hashlib
+
+    from tpusnark_torch.curves.ref import R
+    from tpusnark_torch.frontend.builder import Builder
+    from tpusnark_torch.gadgets.sha2 import sha256_of_bytes
+
+    b = Builder(R)
+    ins = [b.secret(f"m{i}") for i in range(n_bytes)]
+    for v in ins:
+        b.to_binary(v, 8)
+    for i, d in enumerate(sha256_of_bytes(b, ins)):
+        b.assert_is_equal(d, b.public(f"d{i}"))
+    rng = random.Random(seed)
+    msg = bytes(rng.randrange(256) for _ in range(n_bytes))
+    digest = list(hashlib.sha256(msg).digest())
+    assign = {f"m{i}": c for i, c in enumerate(msg)}
+    assign.update({f"d{i}": c for i, c in enumerate(digest)})
+    return b.compile(), assign, digest
+
+
+def phase_examples(torch, dev, pool):
+    """(a) The port's examples on `dev`: each main with a seeded rng (its
+    own host verifier inside), the verdicts of the proof with its public
+    inputs and with a wrong one asked of the workers; then the SHA-256
+    circuit at 2^SHA_LOG2: seeded setup and prove, the proof's public digest
+    hashlib's (a satisfied solve and an accepted proof say that the
+    circuit's digest is hashlib's) and a wrong digest byte rejected. Prints
+    the solver branch of each. Returns the pending verdicts."""
+    from tpusnark_torch.backend.groth16 import prove, setup
+    from tpusnark_torch.curves.ref import R
+    from tpusnark_torch.examples import cubic, exponentiate, mimc, plonk_example
+
+    pending = []
+    for i, mod in enumerate((cubic, exponentiate, mimc)):
+        t0 = time.perf_counter()
+        cs, _, vk, proof, pubs = mod.main(device=dev, rng=_seeded(SEED + 60 + i))
+        dt = time.perf_counter() - t0
+        pending += submit_verdicts(pool, "bn254", proof, vk, pubs, [(pubs[0] + 1) % R] + pubs[1:])
+        say(
+            f"[12 examples] {mod.__name__}: {len(cs.constraints)} constraints, Groth16 on {dev.type}, solver "
+            f"branch {_branch(cs)}: main {dt:.3f} s"
+        )
+    t0 = time.perf_counter()
+    cs, _, vk, proof, pubs = plonk_example.main(
+        device=dev, tau=random.Random(SEED + 63).randrange(2, R), rng=_seeded(SEED + 64)
+    )
+    dt = time.perf_counter() - t0
+    pending += submit_plonk_verdicts(pool, proof, vk, pubs, [(pubs[0] + 1) % R])
+    say(f"[12 examples] {plonk_example.__name__}: {cs.n_gates} gates, PLONK on {dev.type} (SCS solved on the host): main {dt:.3f} s")
+    times = {}
+    t0 = time.perf_counter()
+    cs, assign, digest = sha256_circuit(SHA_BYTES, SEED + 65)
+    times["compile"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pk, vk = setup(cs, rng=_seeded(SEED + 66), device=dev)
+    times["setup"] = time.perf_counter() - t0
+    if pk.domain_n != 1 << SHA_LOG2:
+        fail(f"the SHA-256 circuit has {len(cs.constraints)} constraints: a domain of {pk.domain_n}, not 2^{SHA_LOG2}")
+    phases = {}
+    t0 = time.perf_counter()
+    proof = prove(cs, pk, assign, rng=_seeded(SEED + 67, 0), timings=phases, device=dev)
+    times["prove"] = time.perf_counter() - t0
+    wrong = [digest[0] ^ 1] + digest[1:]
+    pending += submit_verdicts(pool, "bn254", proof, vk, digest, wrong)
+    say(
+        f"[12 sha256] {SHA_BYTES} seeded bytes: {len(cs.constraints)} constraints in {len(cs.compute_levels())} "
+        f"levels, domain 2^{SHA_LOG2}, solver branch {_branch(cs)}: proved with the public digest "
+        f"{bytes(digest).hex()} = hashlib.sha256 | " + " ".join(f"{k}={v:.4f}s" for k, v in {**times, **phases}.items())
+    )
+    return pending
+
+
+def _peak(torch, dev) -> float:
+    return torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else float("nan")
+
+
+def phase_rollup(torch, dev, pool, setup_only, off_path):
+    """(b) The rollup at ROLLUP_BATCH transfers over ROLLUP_ACCOUNTS
+    accounts: compile, the operator's batch, a seeded setup with its phase
+    times, the shape rule's verdict, a first prove and the warm proves of
+    ROLLUP_TURNS, all under one seeded rng, so that every proof, on either
+    branch, must be the same point for point; the device solver's witness
+    against the host solver's, every wire; the peak memory after setup and
+    after the proves. (c) The launches of the first warm default-branch
+    prove (counts zeroed just before it, read just after), every kernel of
+    the prove path among them. Returns them and the pending verdicts: each
+    proof with the two public roots, and one with root_after + 1."""
+    from tpusnark_torch import kernels
+    from tpusnark_torch.backend.config import ProverConfig
+    from tpusnark_torch.backend.groth16 import prove, setup
+    from tpusnark_torch.constraint.solver import solve
+    from tpusnark_torch.constraint.solver_torch import (
+        MIN_MEAN_LEVEL_WIDTH,
+        MIN_TOTAL_INSTRUCTIONS,
+        get_level_solver,
+        prefer_device,
+    )
+    from tpusnark_torch.curves.config import get_curve
+    from tpusnark_torch.examples import rollup
+    from tpusnark_torch.fields.tfield import get_field
+    from tpusnark_torch.frontend.builder import Builder
+
+    cfg = get_curve("bn254")
+    p, fr = cfg.host.R, get_field(cfg.fr_spec)
+    depth = ROLLUP_ACCOUNTS.bit_length() - 1
+    t0 = time.perf_counter()
+    b = Builder(p)
+    rollup.define_batch(b, ROLLUP_BATCH, depth=depth)
+    cs = b.compile()
+    compile_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stats = cs.stats()
+    levels_s = time.perf_counter() - t0
+    hint_levels = sum(any(cs.instructions[i][0] == "hint" for i in lv) for lv in cs.compute_levels())
+    n = 1 << (len(cs.constraints) - 1).bit_length()
+    if n != 1 << ROLLUP_LOG2:
+        fail(f"the rollup has {len(cs.constraints)} constraints: a domain of {n}, not 2^{ROLLUP_LOG2}")
+    n_hints = sum(1 for inst in cs.instructions if inst[0] == "hint")
+    say(
+        f"[12 rollup] batch {ROLLUP_BATCH} over {ROLLUP_ACCOUNTS} accounts (depth {depth}): compile {compile_s:.2f} s, "
+        f"levels grouped in {levels_s:.2f} s | cs.stats() {stats} | {n_hints} hints in {hint_levels} levels | "
+        f"domain 2^{ROLLUP_LOG2}"
+    )
+    t0 = time.perf_counter()
+    _, transfers = rollup.make_batch(ROLLUP_BATCH, ROLLUP_ACCOUNTS)
+    assign = rollup.batch_assignment(transfers)
+    operator_s = time.perf_counter() - t0
+    pubs = [transfers[0]["root_before"], transfers[-1]["root_after"]]
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    setup_t = {}
+    t0 = time.perf_counter()
+    pk, vk = setup(cs, rng=_seeded(SEED + 70), device=dev, timings=setup_t)
+    setup_s = time.perf_counter() - t0
+    peak_setup = _peak(torch, dev)
+    if pk.domain_n != n:
+        fail(f"the rollup's setup chose a domain of {pk.domain_n}")
+    say(
+        f"[12 rollup] operator's batch {operator_s:.2f} s; seeded setup {setup_s:.2f} s: "
+        + " ".join(f"{k}={v:.2f}s" for k, v in setup_t.items())
+        + f" (on the card: fixed_base; the host: scalars, encode, to_host, keys) | peak device memory {peak_setup:.3f} GB"
+    )
+    on_device = prefer_device(cs)
+    n_inst, n_levels = cs._torch_level_shape
+    say(
+        f"[12 rollup] prefer_device: {on_device} ({n_inst} instructions in {n_levels} levels, a mean width of "
+        f"{n_inst / n_levels:.1f}; the rule: at least {MIN_TOTAL_INSTRUCTIONS} instructions and a mean width of "
+        f"at least {MIN_MEAN_LEVEL_WIDTH})"
+    )
+    if not on_device:
+        fail("the shape rule keeps the rollup on the host solver")
+    proofs, warm_launches = [], None
+    for i, branch in enumerate(("device",) + ROLLUP_TURNS):
+        config = None if branch == "device" else ProverConfig().with_accelerator("host")
+        prng = random.Random(SEED + 71)
+        phases = {}
+        kernels.reset_launches()  # the main path: one prove
+        t0 = time.perf_counter()
+        proofs.append(prove(cs, pk, assign, rng=lambda: prng.randrange(p), config=config, timings=phases, device=dev))
+        phases["prove"] = time.perf_counter() - t0
+        if i and branch == "device" and warm_launches is None:
+            warm_launches = dict(kernels.LAUNCHES)
+        label = "first prove" if not i else f"warm prove {i}"
+        say(f"[12 rollup] {label}, {branch} branch: " + " ".join(f"{k}={v:.4f}s" for k, v in phases.items()))
+    peak_prove = _peak(torch, dev)
+    if any(_proof_image(pf) != _proof_image(proofs[0]) for pf in proofs[1:]):
+        fail("the rollup's proofs differ between proves under the same rng")
+    pending = [("verify", True, pool.apply_async(verdict, ("bn254", "verify", proof, vk, pubs))) for proof in proofs]
+    wrong = [pubs[0], (pubs[1] + 1) % p]
+    pending.append(("verify", False, pool.apply_async(verdict, ("bn254", "verify", proofs[0], vk, wrong))))
+    t0 = time.perf_counter()
+    want = solve(cs, assign)
+    host_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    W = get_level_solver(cs, cfg.fr_spec, dev).solve(assign)
+    _sync(torch, dev)
+    device_s = time.perf_counter() - t0
+    got = fr.decode(W)
+    n_bad = sum(a != b for a, b in zip(got, want))
+    if n_bad or len(got) != len(want):
+        fail(f"the rollup: the device solver differs from the host solver on {n_bad} of {len(want)} wires")
+    idle = [k for k in kernels.instances("bn254") if k not in setup_only | off_path and warm_launches[k] <= 0]
+    if dev.type == "cuda" and idle:
+        fail(f"kernels of the prove path never launched by a warm rollup prove: {idle}")
+    say(
+        f"[12 rollup] {len(proofs)} proofs equal point for point on both branches; the device solver's witness "
+        f"equals the host solver's on all {len(want)} wires (host solve {host_s:.4f} s, device solve "
+        f"{device_s:.4f} s) | peak device memory after the proves {peak_prove:.3f} GB | a warm default-branch "
+        f"prove's launches over fr: {_fmt(solver_launches('bn254', warm_launches))}"
+    )
+    return warm_launches, pending
+
+
 # ---------------------------------------------------------------- main
 def main() -> None:
     try:
@@ -2603,12 +2850,16 @@ def run() -> None:
     shard_launches, shard_plonk_launches, pending["shard"] = phase_shard(
         torch, card, pool, np_rng, chain, wide, plonk_chain_proved, plonk_commit_vk
     )
+    pending["examples"] = phase_examples(torch, dev, pool)
+    rollup_launches, pending["rollup"] = phase_rollup(torch, dev, pool, setup_only, off_path)
     for curve in CURVES:
         collect_verdicts(curve, LOG2_CONSTRAINTS, pending[curve])
     collect_verdicts("bn254", f"{LOG2_CONSTRAINTS} wide and commit", pending["wide"])
     collect_verdicts("bn254", f"{PLONK_LOG2} PLONK and PLONK commit", pending["plonk"])
     collect_ceremony(ceremony, pending["ceremony"])
     collect_verdicts("bn254", f"{LOG2_CONSTRAINTS} sharded chain, wide and PLONK", pending["shard"])
+    collect_verdicts("bn254", f"{SHA_LOG2} SHA-256 and the examples", pending["examples"])
+    collect_verdicts("bn254", f"{ROLLUP_LOG2} rollup", pending["rollup"])
     stop_workers()
     for mod in ("jax", "tpusnark"):
         if mod in sys.modules:
@@ -2647,6 +2898,7 @@ def run() -> None:
                             "launches_ceremony": ceremony_launches[name],
                             "launches_sharded_prove": shard_launches[name],
                             "launches_sharded_plonk": shard_plonk_launches[name],
+                            "launches_rollup_prove": rollup_launches[name],
                         }
                         if curve == "bn254"
                         else {}
@@ -2655,7 +2907,7 @@ def run() -> None:
                     **({"absorbs": ABSORBS[op]} if (op := name.split("[")[0]) in ABSORBS else {}),
                 )
             )
-    say(f"[12 done] {time.perf_counter() - t_start:.1f} s in all")
+    say(f"[13 done] {time.perf_counter() - t_start:.1f} s in all")
     say(json.dumps({"kernels": rows}))
     say(card)
     say(

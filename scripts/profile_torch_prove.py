@@ -2,7 +2,7 @@
 """Phase times and device busy share of the port's Groth16 or PLONK prove, or
 of an MPC ceremony contribution, on one GPU.
 
-    python3 scripts/profile_torch_prove.py [--curves bw6-761,bls12-377] [--proves 4] [--circuit wide|plonk|ceremony]
+    python3 scripts/profile_torch_prove.py [--curves bw6-761,bls12-377] [--proves 4] [--circuit wide|plonk|ceremony|rollup]
 
 Per curve, on chip_smoke.py's 2^17 multiplication chain (or, with
 ``--circuit wide``, its wide circuit, with a BSB22 commitment over BN254):
@@ -16,7 +16,11 @@ mul/add chain, a 2^17 domain), its keys from an unsafe SRS made on the card
 from a seeded tau. With ``--circuit ceremony`` the work is one phase-1
 contribution of the Groth16 MPC ceremony over BN254 at 2^log2n powers of
 tau (``mpcsetup.Phase1.contribute`` on the card, its step times), repeated
-`--proves` times on one transcript, then once under the profiler. From the
+`--proves` times on one transcript, then once under the profiler. With
+``--circuit rollup`` the prove is the port's rollup example over BN254 at
+chip_smoke.py's size (31 transfers over 32 accounts: 1,034,160
+constraints, a 2^20 domain), its setup's phase times printed, each prove
+through both solver branches in turns, one of each profiled. From the
 profile it prints the device time by kernel, the
 device busy time (kernel intervals merged, so that overlapping kernels count
 once) and the idle share of that prove's wall time. Every line of numbers
@@ -127,7 +131,7 @@ def main() -> None:
     ap.add_argument("--curves", default="bls24-315,bls24-317,bw6-761,bw6-633,bls12-377,bls12-381,bn254")
     ap.add_argument("--proves", type=int, default=4)
     ap.add_argument("--log2n", type=int, default=chip_smoke.LOG2_CONSTRAINTS)
-    ap.add_argument("--circuit", choices=("chain", "wide", "plonk", "ceremony"), default="chain")
+    ap.add_argument("--circuit", choices=("chain", "wide", "plonk", "ceremony", "rollup"), default="chain")
     args = ap.parse_args()
     torch, card = chip_smoke.phase_card()
     if args.circuit == "ceremony":
@@ -142,9 +146,10 @@ def main() -> None:
     chip_smoke.phase_build()
     dev = torch.device("cuda")
     # the solver branches each prove runs through, in turns
-    branches = {"": None} if args.circuit != "wide" else {" device": None, " host": ProverConfig().with_accelerator("host")}
-    if args.circuit == "plonk":
-        args.curves = "bn254"  # PLONK is BN254-only, as in tpusnark
+    both = {" device": None, " host": ProverConfig().with_accelerator("host")}
+    branches = both if args.circuit in ("wide", "rollup") else {"": None}
+    if args.circuit in ("plonk", "rollup"):
+        args.curves = "bn254"  # PLONK and the rollup are BN254-only, as in tpusnark
     for curve in args.curves.split(","):
         p = get_curve(curve).host.R
         t0 = time.perf_counter()
@@ -152,6 +157,15 @@ def main() -> None:
             cs, assign = chip_smoke.mul_chain(args.log2n, p)
         elif args.circuit == "plonk":
             cs, assign = chip_smoke.plonk_chain(args.log2n, p)
+        elif args.circuit == "rollup":
+            from tpusnark_torch.examples import rollup
+            from tpusnark_torch.frontend.builder import Builder
+
+            b = Builder(p)
+            batch, accounts = chip_smoke.ROLLUP_BATCH, chip_smoke.ROLLUP_ACCOUNTS
+            rollup.define_batch(b, batch, depth=accounts.bit_length() - 1)
+            cs = b.compile()
+            assign = rollup.batch_assignment(rollup.make_batch(batch, accounts)[1])
         else:
             cs, assign = chip_smoke.wide_circuit(args.log2n, p, commit=curve == "bn254")
         size = f"{cs.n_gates} gates" if args.circuit == "plonk" else f"{len(cs.constraints)} constraints"
@@ -160,13 +174,16 @@ def main() -> None:
         rng = random.Random(chip_smoke.SEED)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
+        setup_t: dict = {}  # Groth16 setup's phases
         if args.circuit == "plonk":
             n = 1 << (cs.n_gates - 1).bit_length()
             srs = kzg.new_srs_unsafe(n + 3, tau=rng.randrange(2, p), device=dev)
             pk, _ = plonk.setup(cs, srs=srs, device=dev)
         else:
-            pk, _ = setup(cs, rng=lambda: rng.randrange(1, cs.modulus), device=dev, curve=curve)
-        print(f"[{card}] {curve} setup {time.perf_counter() - t0:.4f} s", flush=True)
+            pk, _ = setup(cs, rng=lambda: rng.randrange(1, cs.modulus), device=dev, curve=curve, timings=setup_t)
+        print(f"[{card}] {curve} setup {time.perf_counter() - t0:.4f} s "
+              + " ".join(f"{k}={v:.4f}" for k, v in setup_t.items())
+              + f" peak memory={torch.cuda.max_memory_allocated() / 1e9:.3f} GB", flush=True)
         prng = random.Random(chip_smoke.SEED + 1)
 
         def prove_once(timings=None, config=None):

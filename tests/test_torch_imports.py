@@ -47,7 +47,10 @@ IMPORT_ALL = BLOCK + textwrap.dedent(
                  "backend.plonk.verify", "curves.hash_to_g2", "backend.groth16.mpcsetup",
                  "backend.groth16.marshal", "backend.groth16.solidity", "backend.plonk.marshal",
                  "backend.plonk.solidity", "parallel.sharding", "parallel.dryrun", "backend.groth16.sharded",
-                 "backend.plonk.sharded"):
+                 "backend.plonk.sharded", "logger", "hashes.keccak", "hashes.mimc", "curves.edwards",
+                 "gadgets.merkle", "gadgets.twistededwards", "gadgets.eddsa", "gadgets.uints", "gadgets.sha2",
+                 "examples.cubic", "examples.exponentiate", "examples.mimc", "examples.plonk_example",
+                 "examples.rollup"):
         assert "tpusnark_torch." + name in names, name
     assert "tpusnark_torch._host" not in names
     assert sys.modules["jax"] is None and sys.modules["tpusnark"] is None

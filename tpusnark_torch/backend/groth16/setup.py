@@ -23,6 +23,9 @@ from __future__ import annotations
 
 import random
 import secrets
+import time
+
+import torch
 
 from ...constraint.system import ConstraintSystem
 from ...curves import ref
@@ -174,31 +177,57 @@ def to_host(ops, aff, host):
     return [None if inf[i] else (xs[i], ys[i]) for i in range(len(inf))]
 
 
-def _batch(cfg, ops, ladder, scalars, device):
-    """[s_i * G] for all i: (device affine table, host points)."""
+def _batch(cfg, ops, ladder, scalars, device, mark):
+    """[s_i * G] for all i: (device affine table, host points). mark(phase)
+    closes a timed phase: the scalars' encode, the fixed-base products and
+    the inversion (on `device`), the decode to host points."""
     fp, fr = get_field(cfg.fp_spec), get_field(cfg.fr_spec)
     mul = FixedBaseMul(ops, fr)
-    table = ladder(fp, mul.n_bits, cfg.name, device)
-    aff = to_affine(ops, mul(table, fr.encode(scalars, mont=False, device=device)))
-    return aff, to_host(ops, aff, cfg.host)
+    words = fr.encode(scalars, mont=False, device=device)
+    mark("encode")
+    aff = to_affine(ops, mul(ladder(fp, mul.n_bits, cfg.name, device), words))
+    mark("fixed_base")
+    pts = to_host(ops, aff, cfg.host)
+    mark("to_host")
+    return aff, pts
 
 
 def _cols(aff, lo: int, hi: int):
     return tree_map(lambda a: a[..., lo:hi].contiguous(), aff)
 
 
-def setup(cs, rng=None, device="cuda", curve: str = "bn254"):
+def setup(cs, rng=None, device="cuda", curve: str = "bn254", timings: dict | None = None):
     """(pk, vk) for an R1CS over `curve`'s r, with the key points computed
     on `device`: the card, unless the caller passes "cpu" (the plain
     versions, as the tests run them). rng: callable -> int in [1, r), as tpusnark's setup takes;
     it is drawn in tpusnark's order, so the same rng gives the same keys as
-    tpusnark's setup(..., curve=curve)."""
+    tpusnark's setup(..., curve=curve).
+
+    `timings`: optional dict filled with per-phase wall-clock seconds:
+    `scalars` (the host's Lagrange and QAP evaluation and the key scalars),
+    `encode` (their words, copied to the device), `fixed_base` (the
+    fixed-base products and the affine normalisation on the device),
+    `to_host` (the points decoded to the host) and `keys` (the Pedersen
+    keys and the containers); timing synchronises the device between
+    phases, so pass it only to measure."""
     cfg = ported_curve(curve)
     if cs.modulus != cfg.host.R:
         raise ValueError(f"circuit modulus is not {curve}'s r")
     if cs.commitments and curve != "bn254":
         raise NotImplementedError("BSB22 commitments are BN254-only for now")
     device = compute_device(device)
+    t_last = time.perf_counter()
+
+    def mark(name):
+        nonlocal t_last
+        if timings is None:
+            return
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t = time.perf_counter()
+        timings[name] = timings.get(name, 0.0) + (t - t_last)
+        t_last = t
+
     p = cfg.host.R
     rand = rng or (lambda: secrets.randbelow(p - 1) + 1)
     n = _next_pow2(max(1, len(cs.constraints)))
@@ -234,8 +263,9 @@ def setup(cs, rng=None, device="cuda", curve: str = "bn254"):
     # one G1 batch: [A | B | K_vk | K_pk | CK... | Z | alpha, beta, delta]
     nw = cs.n_wires
     ck_flat = [x for lst in ck_s for x in lst]
+    mark("scalars")
     g1_dev, g1_pts = _batch(
-        cfg, g1, g1_generator_ladder, A + B + k_vk_s + k_pk_s + ck_flat + z_s + [alpha, beta, delta], device
+        cfg, g1, g1_generator_ladder, A + B + k_vk_s + k_pk_s + ck_flat + z_s + [alpha, beta, delta], device, mark
     )
     bounds = {}
     o = 0
@@ -245,7 +275,7 @@ def setup(cs, rng=None, device="cuda", curve: str = "bn254"):
         bounds[name] = (o, o + size)
         o += size
     alpha_g1, beta_g1, delta_g1 = g1_pts[o : o + 3]
-    g2_dev, g2_pts = _batch(cfg, g2, g2_generator_ladder, B + [beta, gamma, delta], device)
+    g2_dev, g2_pts = _batch(cfg, g2, g2_generator_ladder, B + [beta, gamma, delta], device, mark)
     beta_g2, gamma_g2, delta_g2 = g2_pts[nw : nw + 3]
 
     def host_pts(name):
@@ -292,4 +322,5 @@ def setup(cs, rng=None, device="cuda", curve: str = "bn254"):
     tables = {name: _cols(g1_dev, *bounds[name]) for name in ("a", "b1", "k", "z")}
     tables["b2"] = _cols(g2_dev, 0, nw)
     set_device_tables(pk, device, tables)
+    mark("keys")
     return pk, vk

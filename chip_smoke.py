@@ -130,19 +130,46 @@ BN254:
      cut: compile time and cs.stats(), the operator's batch, a seeded setup
      with its phase times (the card's fixed-base products apart from the
      host's scalars, encode and decode), the shape rule's verdict, a first
-     prove and five warm proves, three on the default (device solver)
-     branch and two on the host solver, in turns, each with its phase
+     prove and three warm proves, two on the default (device solver)
+     branch and one on the host solver, in turns, each with its phase
      times, all under one rng and equal point for point; the device
      solver's witness against the host solver's on every wire; every proof
      verified with the two public roots and one rejected against root_after
      + 1; the peak device memory after setup and after the proves; (c) the
      launches of the first warm default-branch prove, counted from zero,
      every kernel of the prove path among them.
- 13. One JSON line with every kernel instance (with, beside the chain's
-prove launches, those of the 2^14 wide device solve and, for BN254, of the
-2^17 wide device-branch prove, of the PLONK prove and setup, of one 2^17
-phase-1 contribution, of the sharded chain and PLONK proves and of a warm
-rollup prove), the card line, and the result line. Any failure exits non-zero before the result line. Imports neither
+Then the standard gadgets' two proving paths (``tpusnark_torch/gadgets``):
+ 13. (a) the native 2-chain, run before phase 12 so that its BW6-761
+     verdicts, minutes each in the workers, overlap phases 12 and 13 (b):
+     phase 5's BLS12-377 chain proof and a second one of the same statement
+     under another seeded rng (the proving key is then dropped) verified
+     inside one BW6-761 circuit (``gadgets/recursion_native.py``, each
+     proof's points secret inputs, its y public): 92,902 constraints in 2,772
+     levels, a 2^17 domain, compile time and shape; a seeded BW6-761 setup;
+     a prove on the default branch (the shape rule's host solver) and one
+     with accelerator="host" under the same rng, equal point for point,
+     with phase times, the launches of the second counted from zero (every
+     kernel of the prove path among them); the device solver's witness
+     (12-word fr, 2,772 levels) against the host solver's on every wire;
+     the host solver refusing inner proof 0's Ar.y + 1 (off the curve) and
+     the two proofs' Ar swapped (the pairing equation); the port's host
+     BW6-761 verifier accepting (y, y) and rejecting (y + 1, y) in the
+     workers; peak memory. (b) The commit-based range check over BN254
+     (``gadgets/rangecheck.py`` on ``lookup.py``): 1,024 secret values each
+     checked to 64 bits and their sum equal to a public input, 26,518
+     constraints in 337 levels, a 2^15 domain, one BSB22 commitment; the
+     shape rule must pick the device solver; seeded setup, one prove on
+     the default branch (its launches counted from zero, every kernel of
+     the prove path among them); the device solver's witness
+     against the host solver's on every wire; a value of 2^64 refused by
+     both solvers; the sum accepted and the sum + 1 rejected by the
+     workers.
+ 14. One JSON line with every kernel instance (with, beside the chain's
+prove launches, those of the 2^14 wide device solve; for BW6-761, of a warm
+2-chain outer prove; and for BN254, of the 2^17 wide device-branch prove,
+of the PLONK prove and setup, of one 2^17 phase-1 contribution, of the
+sharded chain and PLONK proves, of a warm rollup prove and of the
+range-check prove), the card line, and the result line. Any failure exits non-zero before the result line. Imports neither
 JAX nor the JAX package ``tpusnark``: the port stands on its own host layer.
 """
 
@@ -1517,6 +1544,16 @@ def _fmt(counts):
     return " ".join(f"{k}={v}" for k, v in counts.items())
 
 
+def check_prove_path(dev, curve, launches, setup_only, off_path, what):
+    """On the card, every kernel instance of the curve's prove path ran in
+    `launches` (the counts read 0 on the CPU)."""
+    from tpusnark_torch import kernels
+
+    idle = [k for k in kernels.instances(curve) if k not in setup_only | off_path and launches[k] <= 0]
+    if dev.type == "cuda" and idle:
+        fail(f"kernels of the prove path never launched by {what}: {idle}")
+
+
 def phase_wide_solve(torch, dev, curve):
     """The device solver against the host solver on the wide circuit at
     2^WIDE_SOLVE_LOG2 constraints over the curve's r, wire for wire
@@ -1649,9 +1686,7 @@ def phase_wide_prove(torch, dev, pool, setup_only, off_path):
     dev_b = (launches["device"][f"mul[{fr_name}]"], launches["device"][f"from_mont[{fr_name}]"])
     if dev.type == "cuda" and (host_b != (B1_PER_PROVE, B2_PER_PROVE) or dev_b[0] <= B1_PER_PROVE):
         fail(f"wide prove: B1/B2 over fr {dev_b} on the device branch, {host_b} on the host branch")
-    idle = [k for k in kernels.instances(curve) if k not in setup_only | off_path and launches["device"][k] <= 0]
-    if dev.type == "cuda" and idle:
-        fail(f"kernels of the prove path never launched by the wide device-branch prove: {idle}")
+    check_prove_path(dev, curve, launches["device"], setup_only, off_path, "the wide device-branch prove")
     pending = submit_verdicts(pool, curve, proof, vk, [assign["y"]], [(assign["y"] + 1) % p])
     say(
         f"[8 wide] bn254: wide circuit with a BSB22 commitment, {len(cs.constraints)} constraints, {cs.n_wires} "
@@ -2572,8 +2607,9 @@ ROLLUP_BATCH = 31
 ROLLUP_ACCOUNTS = 32
 ROLLUP_LOG2 = 20
 # the warm proves after the first, in turns: the default branch (the shape
-# rule sends the rollup to the device solver) and the host solver
-ROLLUP_TURNS = ("device", "host", "device", "host", "device")
+# rule sends the rollup to the device solver) and the host solver; three,
+# because with phase 13 the script runs near 80 % of its time limit
+ROLLUP_TURNS = ("device", "host", "device")
 
 
 def _seeded(seed, lo=1):
@@ -2775,9 +2811,7 @@ def phase_rollup(torch, dev, pool, setup_only, off_path):
     n_bad = sum(a != b for a, b in zip(got, want))
     if n_bad or len(got) != len(want):
         fail(f"the rollup: the device solver differs from the host solver on {n_bad} of {len(want)} wires")
-    idle = [k for k in kernels.instances("bn254") if k not in setup_only | off_path and warm_launches[k] <= 0]
-    if dev.type == "cuda" and idle:
-        fail(f"kernels of the prove path never launched by a warm rollup prove: {idle}")
+    check_prove_path(dev, "bn254", warm_launches, setup_only, off_path, "a warm rollup prove")
     say(
         f"[12 rollup] {len(proofs)} proofs equal point for point on both branches; the device solver's witness "
         f"equals the host solver's on all {len(want)} wires (host solve {host_s:.4f} s, device solve "
@@ -2785,6 +2819,287 @@ def phase_rollup(torch, dev, pool, setup_only, off_path):
         f"prove's launches over fr: {_fmt(solver_launches('bn254', warm_launches))}"
     )
     return warm_launches, pending
+
+
+# ---------------------------------------------------------------- phase 13
+# (a) the native 2-chain: BLS12-377 proofs verified inside a BW6-761 circuit
+RECURSION_INNER = "bls12-377"
+RECURSION_OUTER = "bw6-761"  # its r is BLS12-377's p
+RECURSION_PROOFS = 2
+RECURSION_LOG2 = 17
+# (b) the commit-based range check over BN254
+RANGE_VALUES = 1024
+RANGE_BITS = 64
+RANGE_LOG2 = 15
+
+# the secret inputs of one inner proof in the outer circuit
+_PROOF_INPUTS = ("ar_x", "ar_y", "bs_x0", "bs_x1", "bs_y0", "bs_y1", "krs_x", "krs_y")
+
+
+def recursion_circuit(vk, n_proofs, builder=None, gadget=None):
+    """The 2-chain's outer circuit over BLS12-377's p (BW6-761's r):
+    `n_proofs` in-circuit Groth16 verifications
+    (``gadgets/recursion_native.py``) of BLS12-377 proofs under the inner key
+    `vk`, each with its proof's Ar, Bs and Krs coordinates as secret inputs
+    (``ar_x<i>``, ...) and its one public input as the public ``y<i>``.
+    `builder`, `gadget`: the Builder class and the recursion_native module
+    (the port's by default)."""
+    if builder is None:
+        from tpusnark_torch.frontend.builder import Builder as builder
+    if gadget is None:
+        from tpusnark_torch.gadgets import recursion_native as gadget
+    b = builder(gadget.P)
+    vkc = gadget.NativeVkConst.from_vk(vk)
+    for i in range(n_proofs):
+        ins = {name: b.secret(f"{name}{i}") for name in _PROOF_INPUTS}
+        ar = (ins["ar_x"], ins["ar_y"])
+        bs = ((ins["bs_x0"], ins["bs_x1"]), (ins["bs_y0"], ins["bs_y1"]))
+        krs = (ins["krs_x"], ins["krs_y"])
+        gadget.NativeGroth16Verifier(b).assert_proof(vkc, ar, bs, krs, [b.public(f"y{i}")])
+    return b.compile()
+
+
+def recursion_assignment(proofs, ys):
+    """The outer circuit's inputs for host BLS12-377 proofs and their
+    public inputs."""
+    assign = {}
+    for i, (pf, y) in enumerate(zip(proofs, ys)):
+        vals = (pf.ar[0], pf.ar[1], pf.bs[0].c0, pf.bs[0].c1, pf.bs[1].c0, pf.bs[1].c1, pf.krs[0], pf.krs[1])
+        assign.update({f"{name}{i}": v for name, v in zip(_PROOF_INPUTS, vals)})
+        assign[f"y{i}"] = y
+    return assign
+
+
+def rangecheck_circuit(n, bits, p, seed, builder=None, checker=None):
+    """`n` secret values, each checked to `bits` bits by the commit-based
+    range checker (``gadgets/rangecheck.py``: 8-bit limbs looked up in one
+    log-derivative table that one BSB22 commitment closes), their sum equal
+    to the public ``sum``. `builder`, `checker`: the Builder class and the
+    rangecheck module (the port's by default). Returns (cs, the assignment
+    of seeded values)."""
+    if builder is None:
+        from tpusnark_torch.frontend.builder import Builder as builder
+    if checker is None:
+        from tpusnark_torch.gadgets import rangecheck as checker
+    b = builder(p)
+    rc = checker.range_checker(b)
+    xs = [b.secret(f"v{i}") for i in range(n)]
+    for x in xs:
+        rc.check(x, bits)
+    b.assert_is_equal(b.add(*xs), b.public("sum"))
+    rng = random.Random(seed)
+    vals = [rng.randrange(1 << bits) for _ in range(n)]
+    return b.compile(), {"sum": sum(vals) % p, **{f"v{i}": v for i, v in enumerate(vals)}}
+
+
+def inner_proofs(dev, chain):
+    """Phase 5's BLS12-377 chain proof and a second one of the same
+    statement under the same key with another seeded rng: (vk, the two
+    proofs, their public y). The proving key is not kept."""
+    from tpusnark_torch.backend.groth16 import prove
+
+    cs, pk, vk, assign, proof, seed = chain
+    prng = random.Random(seed + 100)
+    second = prove(cs, pk, assign, rng=lambda: prng.randrange(cs.modulus), device=dev)
+    if _proof_image(second) == _proof_image(proof):
+        fail("the two inner proofs are equal")
+    return vk, [proof, second], assign["y"]
+
+
+def _refused(solve, what):
+    """Fail unless solve() raises an unsatisfied constraint."""
+    from tpusnark_torch.constraint.solver import UnsatisfiedConstraintError
+
+    try:
+        solve()
+    except UnsatisfiedConstraintError as e:
+        return str(e).splitlines()[0][:80]
+    fail(f"{what}: the solver accepted it")
+
+
+def _times(d):
+    return " ".join(f"{k}={v:.4f}s" for k, v in d.items())
+
+
+def phase_recursion(torch, dev, pool, inner, setup_only, off_path):
+    """(a) The native 2-chain: the outer circuit over the two inner
+    BLS12-377 proofs (`inner`, from inner_proofs), its 2^RECURSION_LOG2
+    domain, a seeded BW6-761 setup, a prove on the default branch and one
+    with accelerator="host" under the same rng, equal point for point (the
+    launches of the second, warm, counted from zero); the device solver's
+    witness against the host solver's, every wire; the host solver refusing
+    inner proof 0's Ar off the curve and the two proofs' Ar swapped. Returns
+    the warm prove's launches and the pending verdicts: (y, y) accepted,
+    (y + 1, y) rejected."""
+    from tpusnark_torch import kernels
+    from tpusnark_torch.backend.config import ProverConfig
+    from tpusnark_torch.backend.groth16 import prove, setup
+    from tpusnark_torch.constraint.solver import solve
+    from tpusnark_torch.constraint.solver_torch import get_level_solver, prefer_device
+    from tpusnark_torch.curves.config import get_curve
+    from tpusnark_torch.fields.tfield import get_field
+
+    vk_in, proofs, y = inner
+    cfg = get_curve(RECURSION_OUTER)
+    p, fr = cfg.host.R, get_field(cfg.fr_spec)
+    if p != get_curve(RECURSION_INNER).host.P:
+        fail("BW6-761's r is not BLS12-377's p")
+    times = {}
+    t0 = time.perf_counter()
+    cs = recursion_circuit(vk_in, RECURSION_PROOFS)
+    times["compile"] = time.perf_counter() - t0
+    assign = recursion_assignment(proofs, [y] * RECURSION_PROOFS)
+    t0 = time.perf_counter()
+    on_device = prefer_device(cs)
+    times["levels"] = time.perf_counter() - t0
+    n_inst, n_levels = cs._torch_level_shape
+    say(
+        f"[13 recursion] outer circuit over {RECURSION_OUTER}'s r: {RECURSION_PROOFS} in-circuit verifications "
+        f"of {RECURSION_INNER} proofs, {len(cs.constraints)} constraints, {cs.n_wires} wires, {n_levels} levels, "
+        f"a mean width of {n_inst / n_levels:.1f}: solver branch {'device' if on_device else 'host'} | "
+        + _times(times)
+    )
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    rng = random.Random(SEED + 80)
+    setup_t = {}
+    t0 = time.perf_counter()
+    pk, vk = setup(cs, rng=lambda: rng.randrange(1, p), device=dev, curve=RECURSION_OUTER, timings=setup_t)
+    setup_t["setup"] = time.perf_counter() - t0
+    if pk.domain_n != 1 << RECURSION_LOG2:
+        fail(f"the outer circuit's domain is {pk.domain_n}, not 2^{RECURSION_LOG2}")
+    say(f"[13 recursion] domain 2^{RECURSION_LOG2}; seeded setup: " + _times(setup_t) + f" | peak device memory {_peak(torch, dev):.3f} GB")
+    proved, launches = {}, {}
+    for branch, config in (("default", None), ("host", ProverConfig().with_accelerator("host"))):
+        prng = random.Random(SEED + 81)
+        phases = {}
+        kernels.reset_launches()  # the main path: one prove
+        t0 = time.perf_counter()
+        proved[branch] = prove(cs, pk, assign, rng=lambda: prng.randrange(p), config=config, timings=phases, device=dev)
+        phases["prove"] = time.perf_counter() - t0
+        launches[branch] = dict(kernels.LAUNCHES)
+        say(f"[13 recursion] prove, {branch} branch: " + _times(phases))
+    if _proof_image(proved["default"]) != _proof_image(proved["host"]):
+        fail("the outer circuit's proofs differ between the default and the host branch")
+    check_prove_path(dev, RECURSION_OUTER, launches["host"], setup_only, off_path, "a warm outer prove")
+    ys = [y] * RECURSION_PROOFS
+    pending = submit_verdicts(pool, RECURSION_OUTER, proved["default"], vk, ys, [(y + 1) % p] + ys[1:])
+    t0 = time.perf_counter()
+    want = solve(cs, assign)
+    host_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ls = get_level_solver(cs, cfg.fr_spec, dev)
+    build_s = time.perf_counter() - t0
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    W = ls.solve(assign)
+    _sync(torch, dev)
+    device_s = time.perf_counter() - t0
+    solve_launches = solver_launches(RECURSION_OUTER, kernels.LAUNCHES)
+    got = fr.decode(W)
+    n_bad = sum(a != b for a, b in zip(got, want))
+    if n_bad or len(got) != len(want):
+        fail(f"the outer circuit: the device solver differs from the host solver on {n_bad} of {len(want)} wires")
+    say(
+        f"[13 recursion] the device solver's witness equals the host solver's on all {len(want)} wires | host "
+        f"solve {host_s:.4f} s, device: solver built {build_s:.4f} s, solve {device_s:.4f} s, its launches over "
+        f"fr: {_fmt(solve_launches)} | peak device memory {_peak(torch, dev):.3f} GB"
+    )
+    off_curve = dict(assign, ar_y0=(assign["ar_y0"] + 1) % p)
+    swapped = dict(assign)
+    for k in ("ar_x", "ar_y"):
+        swapped[f"{k}0"], swapped[f"{k}1"] = assign[f"{k}1"], assign[f"{k}0"]
+    for what, bad in (("inner proof 0's Ar.y + 1", off_curve), ("the two proofs' Ar swapped", swapped)):
+        t0 = time.perf_counter()
+        why = _refused(lambda: solve(cs, bad), f"the outer circuit with {what}")
+        say(f"[13 recursion] the host solver refuses {what}: {why} ({time.perf_counter() - t0:.4f} s)")
+    say(f"[13 recursion] a warm outer prove's launches: {_fmt({k: v for k, v in launches['host'].items() if v})}")
+    return launches["host"], pending
+
+
+def phase_rangecheck(torch, dev, pool, setup_only, off_path):
+    """(b) RANGE_VALUES values checked to RANGE_BITS bits by the
+    commit-based range checker over BN254: compile, the shape rule's
+    verdict (the device solver, else fail), seeded setup, one prove on the
+    default branch (its launches counted from zero); the device solver's
+    witness against the host's, every wire; a value of 2^RANGE_BITS refused
+    by both solvers. Returns the prove's launches and the pending verdicts:
+    the sum accepted, the sum + 1 rejected."""
+    from tpusnark_torch import kernels
+    from tpusnark_torch.backend.groth16 import prove, setup
+    from tpusnark_torch.backend.groth16.prove import bsb22_prover_state
+    from tpusnark_torch.constraint.solver import solve
+    from tpusnark_torch.constraint.solver_torch import get_level_solver, prefer_device
+    from tpusnark_torch.curves.config import get_curve
+    from tpusnark_torch.fields.tfield import get_field
+
+    cfg = get_curve("bn254")
+    p, fr = cfg.host.R, get_field(cfg.fr_spec)
+    times = {}
+    t0 = time.perf_counter()
+    cs, assign = rangecheck_circuit(RANGE_VALUES, RANGE_BITS, p, SEED + 90)
+    times["compile"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_device = prefer_device(cs)
+    times["levels"] = time.perf_counter() - t0
+    n_inst, n_levels = cs._torch_level_shape
+    say(
+        f"[13 rangecheck] {RANGE_VALUES} values checked to {RANGE_BITS} bits over bn254: {len(cs.constraints)} "
+        f"constraints, {cs.n_wires} wires, {n_levels} levels, a mean width of {n_inst / n_levels:.1f}, "
+        f"{len(cs.commitments)} BSB22 commitment: solver branch {'device' if on_device else 'host'} | "
+        + _times(times)
+    )
+    if not on_device:
+        fail("the shape rule keeps the range check on the host solver")
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    rng = random.Random(SEED + 91)
+    setup_t = {}
+    t0 = time.perf_counter()
+    pk, vk = setup(cs, rng=lambda: rng.randrange(1, p), device=dev, curve="bn254", timings=setup_t)
+    setup_t["setup"] = time.perf_counter() - t0
+    if pk.domain_n != 1 << RANGE_LOG2:
+        fail(f"the range check's domain is {pk.domain_n}, not 2^{RANGE_LOG2}")
+    say(f"[13 rangecheck] domain 2^{RANGE_LOG2}; seeded setup: " + _times(setup_t))
+    prng = random.Random(SEED + 92)
+    phases = {}
+    kernels.reset_launches()  # the main path: one prove
+    t0 = time.perf_counter()
+    proof = prove(cs, pk, assign, rng=lambda: prng.randrange(p), timings=phases, device=dev)
+    phases["prove"] = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    say("[13 rangecheck] prove, default branch: " + _times(phases) + f" | peak device memory {_peak(torch, dev):.3f} GB")
+    if len(proof.commitments) != 1 or proof.commitment_pok is None:
+        fail("the range check's proof carries no commitment")
+    check_prove_path(dev, "bn254", launches, setup_only, off_path, "the range-check prove")
+    pending = submit_verdicts(pool, "bn254", proof, vk, [assign["sum"]], [(assign["sum"] + 1) % p])
+    overrides, _, _ = bsb22_prover_state(cs, pk)
+    t0 = time.perf_counter()
+    want = solve(cs, assign, hint_overrides=overrides)
+    host_s = time.perf_counter() - t0
+    ls = get_level_solver(cs, cfg.fr_spec, dev)
+    t0 = time.perf_counter()
+    W = ls.solve(assign, hint_overrides=overrides)
+    _sync(torch, dev)
+    device_s = time.perf_counter() - t0
+    got = fr.decode(W)
+    n_bad = sum(a != b for a, b in zip(got, want))
+    if n_bad or len(got) != len(want):
+        fail(f"the range check: the device solver differs from the host solver on {n_bad} of {len(want)} wires")
+    say(
+        f"[13 rangecheck] the device solver's witness equals the host solver's on all {len(want)} wires | host "
+        f"solve {host_s:.4f} s, device solve {device_s:.4f} s"
+    )
+    big = 1 << RANGE_BITS
+    bad = dict(assign, v0=big, sum=(assign["sum"] - assign["v0"] + big) % p)
+    for name, solve_bad in (
+        ("host", lambda: solve(cs, bad, hint_overrides=overrides)),
+        ("device", lambda: ls.solve(bad, hint_overrides=overrides)),
+    ):
+        why = _refused(solve_bad, f"the range check with a value of 2^{RANGE_BITS}")
+        say(f"[13 rangecheck] the {name} solver refuses a value of 2^{RANGE_BITS}: {why}")
+    say(f"[13 rangecheck] the prove's launches: {_fmt({k: v for k, v in launches.items() if v})}")
+    return launches, pending
 
 
 # ---------------------------------------------------------------- main
@@ -2821,6 +3136,8 @@ def run() -> None:
         )
         if curve == "bn254":
             chain = proved  # phase 11 proves it again, sharded
+        elif curve == RECURSION_INNER:
+            inner = inner_proofs(dev, proved)  # phase 13 (a) verifies them in a circuit
         del proved
         runs[curve] = (setup_launches, launches)
         check_launches(curve, setup_only, off_path, setup_launches, launches)
@@ -2850,8 +3167,13 @@ def run() -> None:
     shard_launches, shard_plonk_launches, pending["shard"] = phase_shard(
         torch, card, pool, np_rng, chain, wide, plonk_chain_proved, plonk_commit_vk
     )
+    # phase 13 (a) before phase 12: its BW6-761 verdicts take minutes in the
+    # workers, beside phases 12 and 13 (b)
+    recursion_launches, pending["recursion"] = phase_recursion(torch, dev, pool, inner, setup_only, off_path)
+    del inner
     pending["examples"] = phase_examples(torch, dev, pool)
     rollup_launches, pending["rollup"] = phase_rollup(torch, dev, pool, setup_only, off_path)
+    rangecheck_launches, pending["rangecheck"] = phase_rangecheck(torch, dev, pool, setup_only, off_path)
     for curve in CURVES:
         collect_verdicts(curve, LOG2_CONSTRAINTS, pending[curve])
     collect_verdicts("bn254", f"{LOG2_CONSTRAINTS} wide and commit", pending["wide"])
@@ -2860,6 +3182,8 @@ def run() -> None:
     collect_verdicts("bn254", f"{LOG2_CONSTRAINTS} sharded chain, wide and PLONK", pending["shard"])
     collect_verdicts("bn254", f"{SHA_LOG2} SHA-256 and the examples", pending["examples"])
     collect_verdicts("bn254", f"{ROLLUP_LOG2} rollup", pending["rollup"])
+    collect_verdicts(RECURSION_OUTER, f"{RECURSION_LOG2} 2-chain", pending["recursion"])
+    collect_verdicts("bn254", f"{RANGE_LOG2} range check", pending["rangecheck"])
     stop_workers()
     for mod in ("jax", "tpusnark"):
         if mod in sys.modules:
@@ -2899,15 +3223,17 @@ def run() -> None:
                             "launches_sharded_prove": shard_launches[name],
                             "launches_sharded_plonk": shard_plonk_launches[name],
                             "launches_rollup_prove": rollup_launches[name],
+                            "launches_rangecheck_prove": rangecheck_launches[name],
                         }
                         if curve == "bn254"
                         else {}
                     ),
+                    **({"launches_recursion_prove": recursion_launches[name]} if curve == RECURSION_OUTER else {}),
                     **{k: c[k] for k in B1_B2_KEYS if k in c},
                     **({"absorbs": ABSORBS[op]} if (op := name.split("[")[0]) in ABSORBS else {}),
                 )
             )
-    say(f"[13 done] {time.perf_counter() - t_start:.1f} s in all")
+    say(f"[14 done] {time.perf_counter() - t_start:.1f} s in all")
     say(json.dumps({"kernels": rows}))
     say(card)
     say(

@@ -2,7 +2,7 @@
 """Phase times and device busy share of the port's Groth16 or PLONK prove, or
 of an MPC ceremony contribution, on one GPU.
 
-    python3 scripts/profile_torch_prove.py [--curves bw6-761,bls12-377] [--proves 4] [--circuit wide|plonk|ceremony|rollup]
+    python3 scripts/profile_torch_prove.py [--curves bw6-761,bls12-377] [--proves 4] [--circuit wide|plonk|ceremony|rollup|recursion|rangecheck]
 
 Per curve, on chip_smoke.py's 2^17 multiplication chain (or, with
 ``--circuit wide``, its wide circuit, with a BSB22 commitment over BN254):
@@ -20,7 +20,13 @@ tau (``mpcsetup.Phase1.contribute`` on the card, its step times), repeated
 ``--circuit rollup`` the prove is the port's rollup example over BN254 at
 chip_smoke.py's size (31 transfers over 32 accounts: 1,034,160
 constraints, a 2^20 domain), its setup's phase times printed, each prove
-through both solver branches in turns, one of each profiled. From the
+through both solver branches in turns, one of each profiled. With
+``--circuit recursion`` the prove is chip_smoke.py's native 2-chain over
+BW6-761 (two BLS12-377 proofs of its 2^17 chain, made and proved here first,
+verified in one circuit: 92,902 constraints, a 2^17 domain; the shape rule's
+host solver); with ``--circuit rangecheck`` its commit-based range check
+over BN254 (1,024 values of 64 bits, a 2^15 domain), each prove through
+both solver branches in turns. From the
 profile it prints the device time by kernel, the
 device busy time (kernel intervals merged, so that overlapping kernels count
 once) and the idle share of that prove's wall time. Every line of numbers
@@ -126,12 +132,28 @@ def profile_ceremony(torch, card, args) -> None:
         print(f"[{card}] ceremony   {name:60s} launches={n:6d} ms={ms:.3f}", flush=True)
 
 
+def inner_proofs(dev):
+    """chip_smoke's inner proofs of the 2-chain: its 2^17 chain over
+    BLS12-377, set up and proved on `dev`, and a second proof of it."""
+    from tpusnark_torch.backend.groth16 import prove, setup
+    from tpusnark_torch.curves.config import get_curve
+
+    curve = chip_smoke.RECURSION_INNER
+    cs, assign = chip_smoke.mul_chain(chip_smoke.LOG2_CONSTRAINTS, get_curve(curve).host.R)
+    rng, prng = random.Random(chip_smoke.SEED), random.Random(chip_smoke.SEED + 1)
+    pk, vk = setup(cs, rng=lambda: rng.randrange(1, cs.modulus), device=dev, curve=curve)
+    proof = prove(cs, pk, assign, rng=lambda: prng.randrange(cs.modulus), device=dev)
+    return chip_smoke.inner_proofs(dev, chip_smoke.Proved(cs, pk, vk, assign, proof, chip_smoke.SEED + 1))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--curves", default="bls24-315,bls24-317,bw6-761,bw6-633,bls12-377,bls12-381,bn254")
     ap.add_argument("--proves", type=int, default=4)
     ap.add_argument("--log2n", type=int, default=chip_smoke.LOG2_CONSTRAINTS)
-    ap.add_argument("--circuit", choices=("chain", "wide", "plonk", "ceremony", "rollup"), default="chain")
+    ap.add_argument(
+        "--circuit", choices=("chain", "wide", "plonk", "ceremony", "rollup", "recursion", "rangecheck"), default="chain"
+    )
     args = ap.parse_args()
     torch, card = chip_smoke.phase_card()
     if args.circuit == "ceremony":
@@ -147,9 +169,11 @@ def main() -> None:
     dev = torch.device("cuda")
     # the solver branches each prove runs through, in turns
     both = {" device": None, " host": ProverConfig().with_accelerator("host")}
-    branches = both if args.circuit in ("wide", "rollup") else {"": None}
-    if args.circuit in ("plonk", "rollup"):
-        args.curves = "bn254"  # PLONK and the rollup are BN254-only, as in tpusnark
+    branches = both if args.circuit in ("wide", "rollup", "rangecheck") else {"": None}
+    if args.circuit in ("plonk", "rollup", "rangecheck"):
+        args.curves = "bn254"  # PLONK, the rollup and BSB22 are BN254-only, as in tpusnark
+    elif args.circuit == "recursion":
+        args.curves = chip_smoke.RECURSION_OUTER
     for curve in args.curves.split(","):
         p = get_curve(curve).host.R
         t0 = time.perf_counter()
@@ -166,6 +190,15 @@ def main() -> None:
             rollup.define_batch(b, batch, depth=accounts.bit_length() - 1)
             cs = b.compile()
             assign = rollup.batch_assignment(rollup.make_batch(batch, accounts)[1])
+        elif args.circuit == "recursion":
+            vk, proofs, y = inner_proofs(dev)
+            t0 = time.perf_counter()  # the compile alone
+            cs = chip_smoke.recursion_circuit(vk, len(proofs))
+            assign = chip_smoke.recursion_assignment(proofs, [y] * len(proofs))
+        elif args.circuit == "rangecheck":
+            cs, assign = chip_smoke.rangecheck_circuit(
+                chip_smoke.RANGE_VALUES, chip_smoke.RANGE_BITS, p, chip_smoke.SEED + 90
+            )
         else:
             cs, assign = chip_smoke.wide_circuit(args.log2n, p, commit=curve == "bn254")
         size = f"{cs.n_gates} gates" if args.circuit == "plonk" else f"{len(cs.constraints)} constraints"

@@ -217,10 +217,10 @@ GADGETS = {
 }
 
 
-def level_solve(cs, assign):
-    """The port's level solver on CPU tensors, decoded."""
-    f = get_field(BN254_FR)
-    return f.decode(LevelSolver(cs, f, "cpu").solve(assign))
+def level_solve(cs, assign, overrides=None, spec=BN254_FR):
+    """The port's level solver on CPU tensors over `spec`, decoded."""
+    f = get_field(spec)
+    return f.decode(LevelSolver(cs, f, "cpu").solve(assign, hint_overrides=overrides))
 
 
 @pytest.mark.parametrize("gadget", GADGETS)

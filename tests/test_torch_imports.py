@@ -50,7 +50,10 @@ IMPORT_ALL = BLOCK + textwrap.dedent(
                  "backend.plonk.sharded", "logger", "hashes.keccak", "hashes.mimc", "curves.edwards",
                  "gadgets.merkle", "gadgets.twistededwards", "gadgets.eddsa", "gadgets.uints", "gadgets.sha2",
                  "examples.cubic", "examples.exponentiate", "examples.mimc", "examples.plonk_example",
-                 "examples.rollup"):
+                 "examples.rollup", "testing.engine", "gadgets.bits", "gadgets.cmp", "gadgets.selector",
+                 "gadgets.bitslice", "gadgets.multicommit", "gadgets.lookup", "gadgets.rangecheck",
+                 "gadgets.keccakf", "gadgets.sha3", "utils.mimc_transcript", "gadgets.native_tower",
+                 "gadgets.sw_native", "gadgets.recursion_native"):
         assert "tpusnark_torch." + name in names, name
     assert "tpusnark_torch._host" not in names
     assert sys.modules["jax"] is None and sys.modules["tpusnark"] is None

@@ -15,8 +15,11 @@ multiplies their G2 keys on the host, one ladder a point; here they are
 lanes of the same batched multiplication). BSB22 commitments (BN254 only,
 as in tpusnark) split K as tpusnark's setup does: the commitment wires' K
 points go to the verifying key, the committed wires' become the Pedersen
-bases (lanes of the same G1 batch), and ``pedersen_setup`` draws its sigma
-after the toxic waste.
+bases (lanes of the same G1 batch), and the Pedersen keys are
+``pedersen_setup``'s: its sigma drawn after the toxic waste, where it draws
+it, and the sigma multiples of the bases the lanes of one more G1 batch
+(``pedersen_setup`` runs one host ladder a basis point, minutes for the
+thousands of bases of a range check).
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ import torch
 from ...constraint.system import ConstraintSystem
 from ...curves import ref
 from ...curves.batch_mul import FixedBaseMul, g1_generator_ladder, g2_generator_ladder
-from ...curves.pedersen import pedersen_setup
+from ...curves.pedersen import PedersenProvingKey, PedersenVerifyingKey
 from ...curves.tcurve import curve_ops, small_mul
 from ...fields.tfield import compute_device, get_field
 from ...msm.pippenger import tree_map
@@ -284,7 +287,17 @@ def setup(cs, rng=None, device="cuda", curve: str = "bn254", timings: dict | Non
 
     commitment_keys, commitment_vk = [], None
     if cs.commitments:
-        commitment_keys, commitment_vk = pedersen_setup([host_pts(("ck", j)) for j in range(len(ck_s))], rand)
+        sigma = rand()  # pedersen_setup's draw
+        sig_pts = []
+        if ck_flat:
+            sig_pts = _batch(cfg, g1, g1_generator_ladder, [s * sigma % p for s in ck_flat], device, mark)[1]
+        o = 0
+        for j, lst in enumerate(ck_s):
+            basis_exp_sigma = sig_pts[o : o + len(lst)]
+            commitment_keys.append(PedersenProvingKey(basis=host_pts(("ck", j)), basis_exp_sigma=basis_exp_sigma))
+            o += len(lst)
+        g2_gen = ref.G2.generator()
+        commitment_vk = PedersenVerifyingKey(g2=g2_gen, g2_sigma_neg=ref.G2.neg(ref.G2.mul(g2_gen, sigma)))
     # the verifier's committed-public index lists: committed publics stay
     # positions into [1 | publics], committed commitment wires become npub +
     # the ordinal of that commitment in the extended public witness

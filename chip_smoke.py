@@ -164,12 +164,29 @@ Then the standard gadgets' two proving paths (``tpusnark_torch/gadgets``):
      against the host solver's on every wire; a value of 2^64 refused by
      both solvers; the sum accepted and the sum + 1 rejected by the
      workers.
- 14. One JSON line with every kernel instance (with, beside the chain's
+Then the EVM's precompiles over emulated arithmetic (``gadgets/emulated.py``,
+``sw_emulated.py``, ``evmprecompiles.py``), over BN254:
+ 14. 32 EIP-196 ECADD calls (``ecadd_circuit``: P and Q as secret 64-bit
+     limbs, both checked on the curve, R's limbs and identity flag public;
+     call 1 doubles, call 2 annihilates): 852,416 constraints in 17 levels,
+     a 2^20 domain, compile time and shape (hint-bearing levels among
+     them); the shape rule must pick the device solver; a seeded setup with
+     its phase times; a prove on the default branch (which must build and
+     run the device solver) and one with accelerator="host" under the same
+     rng, then one warm prove of each, all equal point for point, each
+     with its phase times; the launches of the warm default-branch prove,
+     counted from zero, every kernel of the prove path among them; the
+     device solver's witness against the host solver's on every wire, with
+     both solve times and the time of the device solver's hint syncs; Q.y
+     + 1 on a seeded call, a claimed R.x + 1 on call 0 and flag 0 on call 2
+     refused by both solvers; the true public inputs accepted and call 0's
+     first output limb + 1 rejected (in the workers); peak memory.
+ 15. One JSON line with every kernel instance (with, beside the chain's
 prove launches, those of the 2^14 wide device solve; for BW6-761, of a warm
 2-chain outer prove; and for BN254, of the 2^17 wide device-branch prove,
 of the PLONK prove and setup, of one 2^17 phase-1 contribution, of the
-sharded chain and PLONK proves, of a warm rollup prove and of the
-range-check prove), the card line, and the result line. Any failure exits non-zero before the result line. Imports neither
+sharded chain and PLONK proves, of a warm rollup prove, of the range-check
+prove and of a warm ECADD prove), the card line, and the result line. Any failure exits non-zero before the result line. Imports neither
 JAX nor the JAX package ``tpusnark``: the port stands on its own host layer.
 """
 
@@ -2906,14 +2923,18 @@ def inner_proofs(dev, chain):
     return vk, [proof, second], assign["y"]
 
 
-def _refused(solve, what):
-    """Fail unless solve() raises an unsatisfied constraint."""
+def _refused(solve, what, hint_checks=False):
+    """Fail unless solve() raises an unsatisfied constraint or, with
+    hint_checks, a hint's own check (the emulated field's quotient and carry
+    hints assert that their identity holds)."""
     from tpusnark_torch.constraint.solver import UnsatisfiedConstraintError
 
     try:
         solve()
-    except UnsatisfiedConstraintError as e:
-        return str(e).splitlines()[0][:80]
+    except (UnsatisfiedConstraintError, AssertionError) as e:
+        if isinstance(e, AssertionError) and not hint_checks:
+            raise
+        return f"{type(e).__name__}: {(str(e).splitlines() or [''])[0][:80]}"
     fail(f"{what}: the solver accepted it")
 
 
@@ -3102,6 +3123,226 @@ def phase_rangecheck(torch, dev, pool, setup_only, off_path):
     return launches, pending
 
 
+# ---------------------------------------------------------------- phase 14
+# A batch of EIP-196 ECADD calls (precompile 0x06, gnark's
+# std/evmprecompiles/06-bnadd.go) over BN254's G1 in emulated Fp, each with
+# its inputs checked on the curve and its output bound to public limbs, as
+# a zkEVM prover proves a block's calls: 32 calls, 852,416 constraints in 17
+# levels, a 2^20 domain, nothing cut.
+ECADD_CALLS = 32
+ECADD_LOG2 = 20
+# the warm proves after the two that are compared (default, then host), in
+# turns: the default branch (the shape rule sends the batch to the device
+# solver) and the host solver
+ECADD_TURNS = ("device", "host")
+_ECADD_INPUTS = ("px", "py", "qx", "qy")
+
+
+def ecadd_circuit(n_calls, builder=None, gadget=None):
+    """`n_calls` ECADD calls (``gadgets/evmprecompiles.py``: ``ecadd`` on
+    ``add_unified``) over emulated BN254 Fp inside BN254's r. Call k takes P
+    and Q as 4 + 4 secret 64-bit limbs each (``px<k>_<i>``, ``py<k>_<i>``,
+    ``qx<k>_<i>``, ``qy<k>_<i>``), checks both on the curve (EIP-196 fails on
+    a point off it), and binds R's limbs to the public ``rx<k>_<i>``,
+    ``ry<k>_<i>`` and its identity flag to the public ``rz<k>``. `builder`,
+    `gadget`: the Builder class and the evmprecompiles module (the port's by
+    default)."""
+    if builder is None:
+        from tpusnark_torch.frontend.builder import Builder as builder
+    if gadget is None:
+        from tpusnark_torch.gadgets import evmprecompiles as gadget
+    b = builder(gadget.BN254_G1.order)
+    C = gadget.bn_g1(b)
+    F, k = C.F, C.F.pr.n_limbs
+    for call in range(n_calls):
+        ins = {c: [b.secret(f"{c}{call}_{i}") for i in range(k)] for c in _ECADD_INPUTS}
+        P = C.from_limbs(ins["px"], ins["py"])
+        Q = C.from_limbs(ins["qx"], ins["qy"])
+        C.assert_on_curve(P)
+        C.assert_on_curve(Q)
+        R, rz = gadget.ecadd(b, C, P, Q)
+        for name, v in (("rx", R.x), ("ry", R.y)):
+            F.assert_is_equal(v, F.from_limbs([b.public(f"{name}{call}_{i}") for i in range(k)]))
+        b.assert_is_equal(rz, b.public(f"rz{call}"))
+    return b.compile()
+
+
+def ecadd_inputs(n_calls, seed):
+    """The calls' points from `seed`: call 1 doubles (Q = P), call 2
+    annihilates (Q = -P: R = (0, 0), flag 1), every other adds two random
+    multiples of the generator; R from ``curves/ref.py``'s G1.add. Returns
+    (the assignment, the public inputs in the circuit's order)."""
+    from tpusnark_torch.curves.ref import G1
+    from tpusnark_torch.curves.ref import P as FP
+    from tpusnark_torch.curves.ref import R as ORDER
+    from tpusnark_torch.gadgets.emulated import EmuParams
+
+    prm = EmuParams.for_modulus(FP)
+    rng = random.Random(seed)
+    assign, pubs = {}, []
+    for call in range(n_calls):
+        pt = G1.mul(G1.generator(), rng.randrange(1, ORDER))
+        if call == 1:
+            q = pt
+        elif call == 2:
+            q = G1.neg(pt)
+        else:
+            q = G1.mul(G1.generator(), rng.randrange(1, ORDER))
+        r = G1.add(pt, q)
+        for name, v in zip(_ECADD_INPUTS, (*pt, *q)):
+            assign.update({f"{name}{call}_{i}": limb for i, limb in enumerate(prm.decompose(v))})
+        for name, v in zip(("rx", "ry"), r or (0, 0)):
+            for i, limb in enumerate(prm.decompose(v)):
+                assign[f"{name}{call}_{i}"] = limb
+                pubs.append(limb)
+        assign[f"rz{call}"] = int(r is None)
+        pubs.append(int(r is None))
+    return assign, pubs
+
+
+def ecadd_tampered(assign, n_calls, seed, p):
+    """The assignments phase 14 must see refused, by name: Q.y + 1 on a
+    seeded call that adds (Q off the curve), a claimed R.x + 1 on call 0,
+    and flag 0 on the annihilating call 2."""
+    call = random.Random(seed).choice([0, *range(3, n_calls)])
+    return {
+        f"call {call}'s Q.y + 1": dict(assign, **{f"qy{call}_0": (assign[f"qy{call}_0"] + 1) % p}),
+        "call 0's claimed R.x + 1": dict(assign, rx0_0=(assign["rx0_0"] + 1) % p),
+        "flag 0 on the annihilating call 2": dict(assign, rz2=0),
+    }
+
+
+def phase_ecadd(torch, dev, pool, setup_only, off_path):
+    """ECADD_CALLS EIP-196 ECADD calls over BN254 (``ecadd_circuit``):
+    compile, its shape (constraints, wires, levels, mean width, hint-bearing
+    levels), the 2^ECADD_LOG2 domain, a seeded setup on `dev`; a prove on the
+    default branch, which must take the device solver, and one with
+    accelerator="host" under the same rng, then the warm proves of
+    ECADD_TURNS, every proof equal point for point, each with its phase
+    times; the launches of the warm default-branch prove (counts zeroed
+    just before it, read just after), every kernel of the prove path among
+    them; the device solve alone (with the time of its hint syncs) against
+    the host solve, every wire; each of ecadd_tampered's assignments refused
+    by both solvers; peak memory. The circuit, keys and solver are freed
+    before returning. Returns the launches and the pending verdicts: the
+    true public inputs accepted, call 0's first output limb + 1 rejected."""
+    from tpusnark_torch import kernels
+    from tpusnark_torch.backend.config import ProverConfig
+    from tpusnark_torch.backend.groth16 import prove, setup
+    from tpusnark_torch.constraint.solver import solve
+    from tpusnark_torch.constraint.solver_torch import get_level_solver, prefer_device
+    from tpusnark_torch.curves.config import get_curve
+    from tpusnark_torch.fields.tfield import get_field
+
+    cfg = get_curve("bn254")
+    p, fr = cfg.host.R, get_field(cfg.fr_spec)
+    times = {}
+    t0 = time.perf_counter()
+    cs = ecadd_circuit(ECADD_CALLS)
+    times["compile"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_device = prefer_device(cs)
+    levels = cs.compute_levels()
+    times["levels"] = time.perf_counter() - t0
+    n_inst, n_levels = cs._torch_level_shape
+    hint_levels = sum(any(cs.instructions[i][0] == "hint" for i in lv) for lv in levels)
+    del levels
+    n = 1 << (len(cs.constraints) - 1).bit_length()
+    say(
+        f"[14 ecadd] {ECADD_CALLS} ECADD calls over bn254: {len(cs.constraints)} constraints, {cs.n_wires} wires "
+        f"({cs.n_public} public), {n_levels} levels, a mean width of {n_inst / n_levels:.1f}, {hint_levels} "
+        f"hint-bearing levels, domain 2^{n.bit_length() - 1}: solver branch {'device' if on_device else 'host'} | "
+        + _times(times)
+    )
+    if n != 1 << ECADD_LOG2:
+        fail(f"the ECADD batch has {len(cs.constraints)} constraints: a domain of {n}, not 2^{ECADD_LOG2}")
+    if not on_device:
+        fail("the shape rule keeps the ECADD batch on the host solver")
+    t0 = time.perf_counter()
+    assign, pubs = ecadd_inputs(ECADD_CALLS, SEED + 100)
+    inputs_s = time.perf_counter() - t0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    rng = random.Random(SEED + 101)
+    setup_t = {}
+    t0 = time.perf_counter()
+    pk, vk = setup(cs, rng=lambda: rng.randrange(1, p), device=dev, timings=setup_t)
+    setup_t["setup"] = time.perf_counter() - t0
+    if pk.domain_n != n:
+        fail(f"the ECADD batch's setup chose a domain of {pk.domain_n}")
+    say(
+        f"[14 ecadd] inputs {inputs_s:.4f} s; seeded setup: " + _times(setup_t)
+        + f" | peak device memory {_peak(torch, dev):.3f} GB"
+    )
+    solvers = cs.__dict__.setdefault("_torch_level_solvers", {})
+    proofs, warm_launches = [], None
+    for i, branch in enumerate(("device", "host") + ECADD_TURNS):
+        config = None if branch == "device" else ProverConfig().with_accelerator("host")
+        prng = random.Random(SEED + 102)
+        phases = {}
+        built = len(solvers)
+        kernels.reset_launches()  # the main path: one prove
+        t0 = time.perf_counter()
+        proofs.append(prove(cs, pk, assign, rng=lambda: prng.randrange(p), config=config, timings=phases, device=dev))
+        phases["prove"] = time.perf_counter() - t0
+        if i == 0 and len(solvers) == built:
+            fail("the ECADD batch's default-branch prove did not build the device solver")
+        if i >= 2 and branch == "device" and warm_launches is None:
+            warm_launches = dict(kernels.LAUNCHES)
+        label = f"warm prove {i - 1}" if i >= 2 else "prove"
+        say(f"[14 ecadd] {label}, {'default (device solver)' if branch == 'device' else 'host'} branch: " + _times(phases))
+    if warm_launches is None:
+        fail("ECADD_TURNS holds no default-branch prove")
+    peak_prove = _peak(torch, dev)
+    if any(_proof_image(pf) != _proof_image(proofs[0]) for pf in proofs[1:]):
+        fail("the ECADD batch's proofs differ between the default and the host branch")
+    check_prove_path(dev, "bn254", warm_launches, setup_only, off_path, "a warm ECADD prove")
+    wrong = [(pubs[0] + 1) % p] + pubs[1:]
+    pending = submit_verdicts(pool, "bn254", proofs[0], vk, pubs, wrong)
+    del proofs, pk
+    t0 = time.perf_counter()
+    want = solve(cs, assign)
+    host_s = time.perf_counter() - t0
+    ls = get_level_solver(cs, cfg.fr_spec, dev)
+    run_hints, sync = ls._run_hints, {"s": 0.0, "levels": 0}
+
+    def timed_hints(W, plan, overrides):  # one level's host sync, timed alone
+        _sync(torch, dev)
+        t = time.perf_counter()
+        run_hints(W, plan, overrides)
+        _sync(torch, dev)
+        sync["s"] += time.perf_counter() - t
+        sync["levels"] += 1
+
+    ls._run_hints = timed_hints
+    t0 = time.perf_counter()
+    W = ls.solve(assign)
+    _sync(torch, dev)
+    device_s = time.perf_counter() - t0
+    ls._run_hints = run_hints
+    got = fr.decode(W)
+    del W
+    n_bad = sum(a != b for a, b in zip(got, want))
+    if n_bad or len(got) != len(want):
+        fail(f"the ECADD batch: the device solver differs from the host solver on {n_bad} of {len(want)} wires")
+    say(
+        f"[14 ecadd] the device solver's witness equals the host solver's on all {len(want)} wires | host solve "
+        f"{host_s:.4f} s, device solve {device_s:.4f} s, of which {sync['s']:.4f} s in the hint syncs of "
+        f"{sync['levels']} levels | peak device memory after the proves {peak_prove:.3f} GB"
+    )
+    del got, want
+    for what, bad in ecadd_tampered(assign, ECADD_CALLS, SEED + 103, p).items():
+        for name, solve_bad in (("host", lambda: solve(cs, bad)), ("device", lambda: ls.solve(bad))):
+            t0 = time.perf_counter()
+            why = _refused(solve_bad, f"the ECADD batch with {what} on the {name} solver", hint_checks=True)
+            say(f"[14 ecadd] the {name} solver refuses {what}: {why} ({time.perf_counter() - t0:.4f} s)")
+    del ls, cs
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    say(f"[14 ecadd] a warm default-branch prove's launches: {_fmt({k: v for k, v in warm_launches.items() if v})}")
+    return warm_launches, pending
+
+
 # ---------------------------------------------------------------- main
 def main() -> None:
     try:
@@ -3174,6 +3415,7 @@ def run() -> None:
     pending["examples"] = phase_examples(torch, dev, pool)
     rollup_launches, pending["rollup"] = phase_rollup(torch, dev, pool, setup_only, off_path)
     rangecheck_launches, pending["rangecheck"] = phase_rangecheck(torch, dev, pool, setup_only, off_path)
+    ecadd_launches, pending["ecadd"] = phase_ecadd(torch, dev, pool, setup_only, off_path)
     for curve in CURVES:
         collect_verdicts(curve, LOG2_CONSTRAINTS, pending[curve])
     collect_verdicts("bn254", f"{LOG2_CONSTRAINTS} wide and commit", pending["wide"])
@@ -3184,6 +3426,7 @@ def run() -> None:
     collect_verdicts("bn254", f"{ROLLUP_LOG2} rollup", pending["rollup"])
     collect_verdicts(RECURSION_OUTER, f"{RECURSION_LOG2} 2-chain", pending["recursion"])
     collect_verdicts("bn254", f"{RANGE_LOG2} range check", pending["rangecheck"])
+    collect_verdicts("bn254", f"{ECADD_LOG2} ECADD batch", pending["ecadd"])
     stop_workers()
     for mod in ("jax", "tpusnark"):
         if mod in sys.modules:
@@ -3224,6 +3467,7 @@ def run() -> None:
                             "launches_sharded_plonk": shard_plonk_launches[name],
                             "launches_rollup_prove": rollup_launches[name],
                             "launches_rangecheck_prove": rangecheck_launches[name],
+                            "launches_ecadd_prove": ecadd_launches[name],
                         }
                         if curve == "bn254"
                         else {}
@@ -3233,7 +3477,7 @@ def run() -> None:
                     **({"absorbs": ABSORBS[op]} if (op := name.split("[")[0]) in ABSORBS else {}),
                 )
             )
-    say(f"[14 done] {time.perf_counter() - t_start:.1f} s in all")
+    say(f"[15 done] {time.perf_counter() - t_start:.1f} s in all")
     say(json.dumps({"kernels": rows}))
     say(card)
     say(

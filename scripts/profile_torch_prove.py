@@ -2,7 +2,7 @@
 """Phase times and device busy share of the port's Groth16 or PLONK prove, or
 of an MPC ceremony contribution, on one GPU.
 
-    python3 scripts/profile_torch_prove.py [--curves bw6-761,bls12-377] [--proves 4] [--circuit wide|plonk|ceremony|rollup|recursion|rangecheck]
+    python3 scripts/profile_torch_prove.py [--curves bw6-761,bls12-377] [--proves 4] [--circuit wide|plonk|ceremony|rollup|recursion|rangecheck|ecadd]
 
 Per curve, on chip_smoke.py's 2^17 multiplication chain (or, with
 ``--circuit wide``, its wide circuit, with a BSB22 commitment over BN254):
@@ -25,8 +25,10 @@ through both solver branches in turns, one of each profiled. With
 BW6-761 (two BLS12-377 proofs of its 2^17 chain, made and proved here first,
 verified in one circuit: 92,902 constraints, a 2^17 domain; the shape rule's
 host solver); with ``--circuit rangecheck`` its commit-based range check
-over BN254 (1,024 values of 64 bits, a 2^15 domain), each prove through
-both solver branches in turns. From the
+over BN254 (1,024 values of 64 bits, a 2^15 domain); with ``--circuit
+ecadd`` its batch of 32 EIP-196 ECADD calls over BN254 (emulated Fp in
+64-bit limbs: 852,416 constraints in 17 levels, a 2^20 domain); each of
+these two through both solver branches in turns. From the
 profile it prints the device time by kernel, the
 device busy time (kernel intervals merged, so that overlapping kernels count
 once) and the idle share of that prove's wall time. Every line of numbers
@@ -152,7 +154,8 @@ def main() -> None:
     ap.add_argument("--proves", type=int, default=4)
     ap.add_argument("--log2n", type=int, default=chip_smoke.LOG2_CONSTRAINTS)
     ap.add_argument(
-        "--circuit", choices=("chain", "wide", "plonk", "ceremony", "rollup", "recursion", "rangecheck"), default="chain"
+        "--circuit", choices=("chain", "wide", "plonk", "ceremony", "rollup", "recursion", "rangecheck", "ecadd"),
+        default="chain",
     )
     args = ap.parse_args()
     torch, card = chip_smoke.phase_card()
@@ -169,9 +172,9 @@ def main() -> None:
     dev = torch.device("cuda")
     # the solver branches each prove runs through, in turns
     both = {" device": None, " host": ProverConfig().with_accelerator("host")}
-    branches = both if args.circuit in ("wide", "rollup", "rangecheck") else {"": None}
-    if args.circuit in ("plonk", "rollup", "rangecheck"):
-        args.curves = "bn254"  # PLONK, the rollup and BSB22 are BN254-only, as in tpusnark
+    branches = both if args.circuit in ("wide", "rollup", "rangecheck", "ecadd") else {"": None}
+    if args.circuit in ("plonk", "rollup", "rangecheck", "ecadd"):
+        args.curves = "bn254"  # PLONK, the rollup, BSB22 and the EVM's ECADD are BN254-only, as in tpusnark
     elif args.circuit == "recursion":
         args.curves = chip_smoke.RECURSION_OUTER
     for curve in args.curves.split(","):
@@ -199,6 +202,9 @@ def main() -> None:
             cs, assign = chip_smoke.rangecheck_circuit(
                 chip_smoke.RANGE_VALUES, chip_smoke.RANGE_BITS, p, chip_smoke.SEED + 90
             )
+        elif args.circuit == "ecadd":
+            cs = chip_smoke.ecadd_circuit(chip_smoke.ECADD_CALLS)
+            assign, _ = chip_smoke.ecadd_inputs(chip_smoke.ECADD_CALLS, chip_smoke.SEED + 100)
         else:
             cs, assign = chip_smoke.wide_circuit(args.log2n, p, commit=curve == "bn254")
         size = f"{cs.n_gates} gates" if args.circuit == "plonk" else f"{len(cs.constraints)} constraints"

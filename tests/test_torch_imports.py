@@ -53,7 +53,9 @@ IMPORT_ALL = BLOCK + textwrap.dedent(
                  "examples.rollup", "testing.engine", "gadgets.bits", "gadgets.cmp", "gadgets.selector",
                  "gadgets.bitslice", "gadgets.multicommit", "gadgets.lookup", "gadgets.rangecheck",
                  "gadgets.keccakf", "gadgets.sha3", "utils.mimc_transcript", "gadgets.native_tower",
-                 "gadgets.sw_native", "gadgets.recursion_native"):
+                 "gadgets.sw_native", "gadgets.recursion_native", "gadgets.emulated", "gadgets.sw_emulated",
+                 "gadgets.fields_tower", "gadgets.pairing", "gadgets.recursion", "gadgets.kzg_verifier",
+                 "gadgets.recursion_plonk", "gadgets.evmprecompiles"):
         assert "tpusnark_torch." + name in names, name
     assert "tpusnark_torch._host" not in names
     assert sys.modules["jax"] is None and sys.modules["tpusnark"] is None

@@ -49,9 +49,10 @@ BLS12-381, BN254):
      in phase 3) not at all.
 Then, over BN254 fr:
   7. the NTT at 2^20 against ``Domain.ntt_ref``, and at 2^22 the round trip
-     and four outputs against a Horner evaluation in Python ints; at both
-     sizes one transform timed through the pass kernel and through the
-     pointwise stage loop the pass kernel replaced.
+     and four outputs against a Horner evaluation in Python ints (these
+     host references in the worker processes, collected at the end); at
+     both sizes one transform timed through the pass kernel and through
+     the pointwise stage loop the pass kernel replaced.
 Then the device witness solver and BSB22 commitments:
   8. per curve, the wide circuit (``wide_circuit``: 1024 product chains side
      by side, a division, an inverse and a to_binary hint) at 2^14
@@ -99,8 +100,9 @@ Then the Groth16 MPC ceremony over BN254 (``backend/groth16/mpcsetup.py``):
      6, init_phase2 on the wide circuit with 96 chains (450 constraints,
      544 private wires, so that L's rescale takes the card) and the
      verifiers of each link, and of a tampered one that must fail, in the
-     worker processes beside phases 7-9; then two phase-2
-     contributions on the card, extract_keys, a prove on the card whose
+     worker processes beside phases 7-9; then, after phases 11 and 13 (a)
+     (so that init_phase2's ~90 s in a worker need not be waited for), two
+     phase-2 contributions on the card, extract_keys, a prove on the card whose
      verdicts the workers give, marshal round trips of the proof, vk and pk
      and the Solidity export holding the vk and the proof's calldata.
 Then the sharded device layer (``tpusnark_torch/parallel``,
@@ -130,7 +132,7 @@ BN254:
      cut: compile time and cs.stats(), the operator's batch, a seeded setup
      with its phase times (the card's fixed-base products apart from the
      host's scalars, encode and decode), the shape rule's verdict, a first
-     prove and three warm proves, two on the default (device solver)
+     prove and two warm proves, one on the default (device solver)
      branch and one on the host solver, in turns, each with its phase
      times, all under one rng and equal point for point; the device
      solver's witness against the host solver's on every wire; every proof
@@ -181,12 +183,39 @@ Then the EVM's precompiles over emulated arithmetic (``gadgets/emulated.py``,
      + 1 on a seeded call, a claimed R.x + 1 on call 0 and flag 0 on call 2
      refused by both solvers; the true public inputs accepted and call 0's
      first output limb + 1 rejected (in the workers); peak memory.
- 15. One JSON line with every kernel instance (with, beside the chain's
+Then the last modules of the port, over BN254:
+ 15. (a) PlonkFRI (``backend/plonkfri``, ``poly/fri.py``): bench.py's
+     PLONK chain at 2^14 gates with the default FriParams (blowup 8, 27
+     queries, stop degree 8: an LDE domain of 2^17), setup and two proves
+     on the card with phase times (the Merkle trees' host leaf packing and
+     sha256 apart), equal field for field; the port's host verifier
+     accepting the proof and rejecting y + 1, a tampered opening and a
+     zeroed root; the launches of the second prove counted from zero (B1,
+     B2, add and sub over fr and the NTT pass kernel exactly as often as
+     its 4 transforms over n and 5 over 8n fix); peak memory; the chain at
+     2^10 proved on the card and on the CPU (in a worker), equal byte for
+     byte; the 2^14 SCS through ``constraint/serialize.py``'s dump and
+     load, proved again to the same proof. (b) GKR inside Groth16
+     (``gadgets/gkr_compile.py`` on ``protocols/gkr.py``):
+     tests/test_gkr_compile.py's DAG over 8 seeded instances, 91,886
+     constraints, a 2^17 domain: compile time, cs.stats() and the shape
+     rule's branch; a seeded setup; a prove on the default branch and one
+     with accelerator="host" under the same rng, equal point for point,
+     the launches of the second counted from zero (every kernel of the
+     prove path among them); the solver refusing o0 + 1; the true outputs
+     accepted and o0 + 1 rejected (in the workers). (c) Phase 5's BN254
+     chain proof through the port's Groth16 Solidity contract and phase
+     9's PLONK proof through its PLONK contract, both executed by
+     ``testing/solidity_exec.py``: each accepts and reverts on a wrong
+     public input; phase 5's assignment as a ``backend/witness.py``
+     Witness through to_bytes and from_bytes.
+ 16. One JSON line with every kernel instance (with, beside the chain's
 prove launches, those of the 2^14 wide device solve; for BW6-761, of a warm
 2-chain outer prove; and for BN254, of the 2^17 wide device-branch prove,
 of the PLONK prove and setup, of one 2^17 phase-1 contribution, of the
 sharded chain and PLONK proves, of a warm rollup prove, of the range-check
-prove and of a warm ECADD prove), the card line, and the result line. Any failure exits non-zero before the result line. Imports neither
+prove, of a warm ECADD prove, of the GKR prove and of the PlonkFRI prove),
+the card line, and the result line. Any failure exits non-zero before the result line. Imports neither
 JAX nor the JAX package ``tpusnark``: the port stands on its own host layer.
 """
 
@@ -1483,16 +1512,47 @@ def pointwise_stage_loop(torch, ntt, x):
     return x
 
 
-def phase_ntt_large(torch, dev, np_rng):
+def ntt_host_check(log2n, x_words, y_words, spots=None):
+    """(lanes that disagree, seconds) of the host reference for phase 7's
+    transform of x_words (Montgomery words) into y_words: at every lane
+    against Domain.ntt_ref, or with `spots` at those outputs against Python
+    Horner evaluations (y_words then holds just them). Top level, so that a
+    worker process runs it beside the card's work."""
+    if HERE not in sys.path:
+        sys.path.insert(0, HERE)
+    from tpusnark_torch.curves.config import get_curve
+    from tpusnark_torch.fields.tfield import words_to_ints
+    from tpusnark_torch.poly.domain import Domain
+
+    t0 = time.perf_counter()
+    spec = get_curve("bn254").fr_spec
+    p, dom = spec.modulus, Domain(spec, 1 << log2n)
+    xs, got = words_to_ints(spec, x_words), words_to_ints(spec, y_words)
+    if spots is None:
+        n_bad = sum(a != b for a, b in zip(dom.ntt_ref(xs), got))
+    else:
+        n_bad = 0
+        for pos, v in zip(spots, got):
+            wk, acc = pow(dom.generator, pos, p), 0
+            for c in reversed(xs):
+                acc = (acc * wk + c) % p
+            n_bad += acc != v
+    return n_bad, time.perf_counter() - t0
+
+
+def phase_ntt_large(torch, dev, np_rng, pool):
     """BN254 fr: the NTT at 2^20 against Domain.ntt_ref, at 2^22 the round
     trip and four outputs against Python Horner evaluations; at both sizes
     one transform timed through the pass kernel and through the pointwise
-    stage loop it replaced, beside the transform's bound."""
+    stage loop it replaced, beside the transform's bound. The host
+    references run in the workers (ntt_host_check): returns their pending
+    results for collect_ntt_checks."""
     from tpusnark_torch.curves.config import get_curve
     from tpusnark_torch.poly.ntt import NTT
 
     spec = get_curve("bn254").fr_spec
     rng = random.Random(SEED + 7)
+    pending = []
     for log2n in LARGE_NTT_LOG2:
         n = 1 << log2n
         torch.cuda.synchronize()
@@ -1501,28 +1561,21 @@ def phase_ntt_large(torch, dev, np_rng):
         torch.cuda.synchronize()
         build_ms = (time.perf_counter() - t0) * 1e3
         fr = ntt.field
-        p, words, w = fr.modulus, fr.n, ntt.domain.generator
-        x = torch.from_numpy(_lazy_words(np_rng, n, p, words)).to(dev)
+        words = fr.n
+        x_host = _lazy_words(np_rng, n, fr.modulus, words)
+        x = torch.from_numpy(x_host).to(dev)
         y = ntt.ntt(x)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        xs = fr.decode(x)
         if log2n < max(LARGE_NTT_LOG2):
-            n_bad, _ = _compare(torch, fr, y, fr.encode(ntt.domain.ntt_ref(xs)))
+            job = (log2n, x_host, y.cpu().numpy())
             what = "equals Domain.ntt_ref"
         else:
             n_bad, _ = _compare(torch, fr, ntt.intt(y), x.cpu())
+            if n_bad:
+                fail(f"the 2^{log2n} NTT over bn254 fr does not invert on {n_bad} lanes")
             spots = sorted(rng.randrange(n) for _ in range(4))
-            got = fr.decode(y[:, spots])
-            for pos, v in zip(spots, got):
-                wk, acc = pow(w, pos, p), 0
-                for c in reversed(xs):
-                    acc = (acc * wk + c) % p
-                n_bad += acc != v
-            what = f"round trip and outputs {spots} equal Python Horner evaluations"
-        host_s = time.perf_counter() - t0
-        if n_bad:
-            fail(f"the 2^{log2n} NTT over bn254 fr disagrees with its reference on {n_bad} lanes")
+            job = (log2n, x_host, y[:, spots].cpu().numpy(), spots)
+            what = f"round trip, and outputs {spots} equal Python Horner evaluations"
+        pending.append((f"bn254 fr 2^{log2n}: {what}", pool.apply_async(ntt_host_check, job)))
         old = pointwise_stage_loop(torch, ntt, x)
         n_bad, _ = _compare(torch, fr, old, y.cpu())
         if n_bad:
@@ -1531,12 +1584,22 @@ def phase_ntt_large(torch, dev, np_rng):
         old_ms = _time_cuda(torch, lambda: pointwise_stage_loop(torch, ntt, x), 5)
         bound = ntt_bound(words, n)
         say(
-            f"[7 ntt] bn254 fr 2^{log2n}: {what} (host {host_s:.1f} s); tables built on the card in "
-            f"{build_ms:.1f} ms; one ntt: {len(ntt.plan)} passes {ntt.plan} {new_ms:.4f} ms, the pointwise "
-            f"stage loop {old_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})"
+            f"[7 ntt] bn254 fr 2^{log2n}: tables built on the card in {build_ms:.1f} ms; one ntt: {len(ntt.plan)} "
+            f"passes {ntt.plan} {new_ms:.4f} ms, the pointwise stage loop {old_ms:.4f} ms, bound {bound[0]:.4f} ms "
+            f"({bound[1]}); its host reference in a worker"
         )
         del ntt, x, y, old
         torch.cuda.empty_cache()
+    return pending
+
+
+def collect_ntt_checks(pending):
+    """Fail unless every host reference of phase 7 agreed with the card."""
+    for what, res in pending:
+        n_bad, host_s = res.get()
+        if n_bad:
+            fail(f"the NTT disagrees with its host reference on {n_bad} lanes ({what})")
+        say(f"[7 ntt] {what} (host, in a worker, {host_s:.1f} s)")
 
 
 # ---------------------------------------------------------------- phase 8
@@ -1764,14 +1827,16 @@ PLONK_OPS = {
 }
 
 
-def plonk_chain(log2n: int, p: int):
+def plonk_chain(log2n: int, p: int, builder=None):
     """bench.py's PLONK circuit over the field of p: a chain alternating
     acc * x and acc + x for 2^log2n - 16 steps (so that gate CSE cannot
-    collapse it), equal to the public y."""
-    from tpusnark_torch.frontend.plonk_builder import PlonkBuilder
+    collapse it), equal to the public y. `builder`: the PlonkBuilder class
+    (the port's by default)."""
+    if builder is None:
+        from tpusnark_torch.frontend.plonk_builder import PlonkBuilder as builder
 
     n = (1 << log2n) - 16
-    b = PlonkBuilder(p)
+    b = builder(p)
     x = b.secret("x")
     y = b.public("y")
     acc = x
@@ -2624,9 +2689,9 @@ ROLLUP_BATCH = 31
 ROLLUP_ACCOUNTS = 32
 ROLLUP_LOG2 = 20
 # the warm proves after the first, in turns: the default branch (the shape
-# rule sends the rollup to the device solver) and the host solver; three,
-# because with phase 13 the script runs near 80 % of its time limit
-ROLLUP_TURNS = ("device", "host", "device")
+# rule sends the rollup to the device solver) and the host solver; two,
+# because with phase 15 the script runs near 80 % of its time limit
+ROLLUP_TURNS = ("device", "host")
 
 
 def _seeded(seed, lo=1):
@@ -3343,6 +3408,334 @@ def phase_ecadd(torch, dev, pool, setup_only, off_path):
     return warm_launches, pending
 
 
+# ---------------------------------------------------------------- phase 15
+# PlonkFRI over BN254 (backend/plonkfri, poly/fri.py): bench.py's PLONK
+# chain at a 2^PLONKFRI_LOG2 domain with default FriParams (blowup 8, 27
+# queries, stop degree 8: an LDE domain of 2^17), and one at
+# 2^PLONKFRI_CHECK_LOG2 proved on the card and on the CPU
+PLONKFRI_LOG2 = 14
+PLONKFRI_CHECK_LOG2 = 10
+# NTT calls (each one launch of the pass kernel a pass of its plan) in one
+# PlonkFRI prove, by size (n: the domain, "N": the LDE domain of blowup *
+# n): over n the wire INTT (l, r, o batched), the NTT of the fixed s1, s2,
+# s3, the z INTT and the PI INTT; over N the LDEs of l, r, o (batched), of
+# z, of PI and of h1, h2, h3 (batched) and the quotient's coset INTT.
+# Setup: one batched INTT over n and one batched LDE.
+PLONKFRI_NTT_CALLS = {"prove": {"n": 4, "N": 5}, "setup": {"n": 1, "N": 1}}
+# the instances a PlonkFRI prove launches over BN254 fr: B1, B2, add, sub
+# and the NTT pass kernel (no MSM)
+PLONKFRI_OPS = ("mul", "from_mont", "add", "sub", "ntt_stages")
+# GKR inside Groth16 (gadgets/gkr_compile.py on protocols/gkr.py):
+# tests/test_gkr_compile.py's DAG over GKR_INSTANCES batched instances,
+# 91,886 constraints, a 2^17 domain
+GKR_INSTANCES = 8
+GKR_LOG2 = 17
+
+
+def plonkfri_launches_expected(n: int, blowup: int, run: str) -> int:
+    """The NTT pass kernel's launches in one PlonkFRI prove or setup over a
+    domain of n, fixed by PLONKFRI_NTT_CALLS and the pass plans."""
+    from tpusnark_torch.fields.spec import BN254_FR
+    from tpusnark_torch.fields.tfield import n_words
+    from tpusnark_torch.poly.ntt import max_stages, pass_plan
+
+    cap = max_stages(n_words(BN254_FR))
+    size = {"n": n, "N": blowup * n}
+    return sum(c * len(pass_plan(size[m].bit_length() - 1, cap)) for m, c in PLONKFRI_NTT_CALLS[run].items())
+
+
+def fri_image(v):
+    """A PlonkFRI proof (or any of its parts) as nested tuples of ints and
+    bytes, keyed by field name: two proofs are equal field for field where
+    their images are, and byte for byte where repr(image) is."""
+    import dataclasses
+
+    if dataclasses.is_dataclass(v):
+        return (type(v).__name__,) + tuple((f.name, fri_image(getattr(v, f.name))) for f in dataclasses.fields(v))
+    if isinstance(v, dict):
+        return tuple(sorted((k, fri_image(x)) for k, x in v.items()))
+    if isinstance(v, (list, tuple)):
+        return tuple(fri_image(x) for x in v)
+    return v
+
+
+def plonkfri_cpu_image(log2n: int):
+    """(repr bytes of fri_image, seconds) of a PlonkFRI setup and prove of
+    plonk_chain(log2n) on the CPU (the plain versions); top level, so that
+    a worker process can run it beside the card's work."""
+    if HERE not in sys.path:
+        sys.path.insert(0, HERE)
+    import torch
+
+    from tpusnark_torch.backend import plonkfri
+    from tpusnark_torch.curves.ref import R
+
+    torch.set_num_threads(2)
+    t0 = time.perf_counter()
+    cs, assign = plonk_chain(log2n, R)
+    pk, _ = plonkfri.setup(cs, device="cpu")
+    proof = plonkfri.prove(cs, pk, assign, device="cpu")
+    return repr(fri_image(proof)).encode(), time.perf_counter() - t0
+
+
+def check_plonkfri_launches(launches: dict, n: int, blowup: int) -> None:
+    """Every instance of the PlonkFRI prove path ran, the NTT pass kernel
+    exactly as often as its transforms fix, no pointwise butterfly, no
+    kernel of another curve."""
+    from tpusnark_torch import kernels
+    from tpusnark_torch.fields.spec import BN254_FR
+
+    fr = BN254_FR.name
+    idle = [f"{op}[{fr}]" for op in PLONKFRI_OPS if launches[f"{op}[{fr}]"] <= 0]
+    if idle:
+        fail(f"PlonkFRI prove: kernels of its path never launched: {idle}")
+    stray = [k for k in (f"butterfly[{fr}]", f"butterfly4[{fr}]") if launches[k]]
+    stray += [k for k, v in launches.items() if v and k not in kernels.instances("bn254")]
+    if stray:
+        fail(f"PlonkFRI prove: kernels off its path ran: {stray}")
+    ntt, want = launches[f"ntt_stages[{fr}]"], plonkfri_launches_expected(n, blowup, "prove")
+    if ntt != want:
+        fail(f"PlonkFRI prove: {ntt} NTT pass launches, not {want}")
+
+
+def phase_plonkfri(torch, dev, cpu_check):
+    """PlonkFRI over BN254 (section (a) of phase 15): plonk_chain at
+    2^PLONKFRI_LOG2 with default FriParams, setup and two proves on `dev`
+    with phase times (the Merkle trees' leaf packing and hashing apart),
+    equal field for field; the launches of the second prove counted from
+    zero; the port's host verifier accepting the proof and rejecting y + 1,
+    a tampered opening and a zeroed root; peak memory; at
+    2^PLONKFRI_CHECK_LOG2 the card's proof equal byte for byte to the CPU's
+    (the plain versions, `cpu_check`: plonkfri_cpu_image's pending result
+    in a worker); then the SCS through constraint/serialize.py's dump and
+    load, proved again from the loaded system: the proof equal. Returns the
+    second prove's launches."""
+    from tpusnark_torch import kernels
+    from tpusnark_torch.backend import plonkfri
+    from tpusnark_torch.constraint import serialize
+    from tpusnark_torch.curves.ref import R
+    from tpusnark_torch.poly.fri import FriParams
+
+    params = FriParams()
+    t0 = time.perf_counter()
+    cs, assign = plonk_chain(PLONKFRI_LOG2, R)
+    compile_s = time.perf_counter() - t0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    setup_t = {}
+    t0 = time.perf_counter()
+    pk, vk = plonkfri.setup(cs, params, device=dev, timings=setup_t)
+    setup_t["setup"] = time.perf_counter() - t0
+    if vk.n != 1 << PLONKFRI_LOG2:
+        fail(f"PlonkFRI setup chose a domain of {vk.n}, not 2^{PLONKFRI_LOG2}")
+    say(
+        f"[15 plonkfri] bn254: {cs.n_gates} gates, domain 2^{PLONKFRI_LOG2}, LDE domain "
+        f"2^{(vk.n * vk.blowup).bit_length() - 1} (blowup {params.blowup}, {params.n_queries} queries, stop degree "
+        f"{params.stop_degree}); compile {compile_s:.4f} s; setup: " + _times(setup_t)
+    )
+    proofs = []
+    for i in range(2):
+        phases = {}
+        kernels.reset_launches()  # the main path: one prove
+        t0 = time.perf_counter()
+        proofs.append(plonkfri.prove(cs, pk, assign, timings=phases, device=dev))
+        phases["prove"] = time.perf_counter() - t0
+        say(f"[15 plonkfri] prove {i + 1}: " + _times(phases))
+    launches = dict(kernels.LAUNCHES)
+    peak = _peak(torch, dev)
+    proof = proofs[1]
+    if fri_image(proofs[0]) != fri_image(proof):
+        fail("the two PlonkFRI proves differ")
+    if dev.type == "cuda":
+        check_plonkfri_launches(launches, vk.n, vk.blowup)
+    y = assign["y"]
+    t0 = time.perf_counter()
+    if not plonkfri.verify(proof, vk, [y]):
+        fail("the port's PlonkFRI verifier rejected the card's proof")
+    verify_s = time.perf_counter() - t0
+    bad_opening = copy.deepcopy(proof)
+    op = bad_opening.identity_queries[0].openings["l"]
+    op.value = (op.value + 1) % R
+    bad_root = copy.deepcopy(proof)
+    bad_root.online_roots["z"] = bytes(32)
+    for what, bad, pubs in (
+        ("y + 1", proof, [(y + 1) % R]),
+        ("a tampered opening", bad_opening, [y]),
+        ("a zeroed root", bad_root, [y]),
+    ):
+        if plonkfri.verify(bad, vk, pubs):
+            fail(f"the port's PlonkFRI verifier accepted {what}")
+    say(
+        f"[15 plonkfri] the two proves are equal field for field; verify accepts ({verify_s:.4f} s) and rejects y + 1, "
+        f"a tampered opening and a zeroed root | peak device memory {peak:.3f} GB | the second prove's launches: "
+        + _fmt({k: v for k, v in launches.items() if v})
+    )
+    # the card against the plain versions on the CPU (in a worker), at a
+    # small size
+    cs_s, assign_s = plonk_chain(PLONKFRI_CHECK_LOG2, R)
+    t0 = time.perf_counter()
+    pk_s, _ = plonkfri.setup(cs_s, params, device=dev)
+    card_image = repr(fri_image(plonkfri.prove(cs_s, pk_s, assign_s, device=dev))).encode()
+    card_s = time.perf_counter() - t0
+    cpu_image, cpu_s = cpu_check.get()
+    say(
+        f"[15 plonkfri] 2^{PLONKFRI_CHECK_LOG2}: setup and prove on {dev.type} {card_s:.4f} s, on the CPU (in a "
+        f"worker) {cpu_s:.4f} s"
+    )
+    if card_image != cpu_image:
+        fail(f"the 2^{PLONKFRI_CHECK_LOG2} PlonkFRI proof from {dev.type} differs from the CPU's")
+    # the serialized constraint system proves the same
+    t0 = time.perf_counter()
+    blob = serialize.dump(cs)
+    loaded = serialize.load(blob)
+    io_s = time.perf_counter() - t0
+    again = plonkfri.prove(loaded, pk, assign, device=dev)
+    if fri_image(again) != fri_image(proof):
+        fail("the PlonkFRI proof from the loaded constraint system differs")
+    say(
+        f"[15 serialize] the 2^{PLONKFRI_CHECK_LOG2} proofs on {dev.type} and on the CPU are equal byte for byte "
+        f"({len(card_image)} bytes of repr); the 2^{PLONKFRI_LOG2} SCS dumped to {len(blob)} bytes and loaded "
+        f"({io_s:.4f} s) proves the same proof"
+    )
+    del pk, proofs, proof, again
+    return launches
+
+
+def gkr_circuit(n_inst: int, seed: int, builder=None, api=None):
+    """tests/test_gkr_compile.py's DAG over `n_inst` batched instances: per
+    instance, out = (a b + a) b and a + b, the inputs secret and seeded, the
+    outputs bound to the public o<i> and s<i> through the in-circuit GKR
+    verifier. `builder`, `api`: the Builder and GkrApi classes (the port's
+    by default). Returns (cs, assignment, public inputs in order)."""
+    if builder is None:
+        from tpusnark_torch.frontend.builder import Builder as builder
+    if api is None:
+        from tpusnark_torch.gadgets.gkr_compile import GkrApi as api
+    from tpusnark_torch.fields.spec import BN254_FR
+
+    p = BN254_FR.modulus
+    rng = random.Random(seed)
+    a_vals = [rng.randrange(p) for _ in range(n_inst)]
+    b_vals = [rng.randrange(p) for _ in range(n_inst)]
+    b = builder(p)
+    a_vars = [b.secret(f"a{i}") for i in range(n_inst)]
+    b_vars = [b.secret(f"b{i}") for i in range(n_inst)]
+    g = api()
+    wa, wb = g.import_input(a_vars), g.import_input(b_vars)
+    we = g.mul(g.add(g.mul(wa, wb), wa), wb)
+    ws = g.add(wa, wb)
+    g.output(we)
+    g.output(ws)
+    outs = g.finalize(b)
+    assign, pubs = {}, []
+    for i in range(n_inst):
+        b.assert_is_equal(outs[we][i], b.public(f"o{i}"))
+        b.assert_is_equal(outs[ws][i], b.public(f"s{i}"))
+        assign.update({f"a{i}": a_vals[i], f"b{i}": b_vals[i]})
+        assign[f"o{i}"] = (a_vals[i] * b_vals[i] + a_vals[i]) * b_vals[i] % p
+        assign[f"s{i}"] = (a_vals[i] + b_vals[i]) % p
+        pubs += [assign[f"o{i}"], assign[f"s{i}"]]
+    return b.compile(), assign, pubs
+
+
+def phase_gkr(torch, dev, pool, setup_only, off_path):
+    """GKR inside Groth16 (section (b) of phase 15): gkr_circuit at
+    GKR_INSTANCES instances, compile time, cs.stats() and the shape rule's
+    branch; a seeded setup; a prove on the default branch and one with
+    accelerator="host" under the same rng, equal point for point, each
+    with its phase times, the launches of the second counted from zero
+    (every kernel of the prove path among them); the solver refusing o0 +
+    1; peak memory after setup and after the proves. Returns the launches
+    and the pending verdicts: the true outputs accepted, o0 + 1 rejected."""
+    from tpusnark_torch import kernels
+    from tpusnark_torch.backend.config import ProverConfig
+    from tpusnark_torch.backend.groth16 import prove, setup
+    from tpusnark_torch.constraint.solver import solve
+    from tpusnark_torch.curves.ref import R
+
+    t0 = time.perf_counter()
+    cs, assign, pubs = gkr_circuit(GKR_INSTANCES, SEED + 110)
+    compile_s = time.perf_counter() - t0
+    stats = cs.stats()
+    branch = _branch(cs)
+    n = 1 << (len(cs.constraints) - 1).bit_length()
+    say(
+        f"[15 gkr] {GKR_INSTANCES} instances over bn254: compile {compile_s:.4f} s, domain 2^{n.bit_length() - 1}, "
+        f"shape rule: {branch} solver | " + _fmt(stats)
+    )
+    if n != 1 << GKR_LOG2:
+        fail(f"the GKR circuit has {len(cs.constraints)} constraints: a domain of {n}, not 2^{GKR_LOG2}")
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    setup_t = {}
+    t0 = time.perf_counter()
+    pk, vk = setup(cs, rng=_seeded(SEED + 111), device=dev, timings=setup_t)
+    setup_t["setup"] = time.perf_counter() - t0
+    say("[15 gkr] seeded setup: " + _times(setup_t) + f" | peak device memory {_peak(torch, dev):.3f} GB")
+    proofs = []
+    for label, config in (("default", None), ("host", ProverConfig().with_accelerator("host"))):
+        phases = {}
+        kernels.reset_launches()  # the main path: one prove
+        t0 = time.perf_counter()
+        proofs.append(prove(cs, pk, assign, rng=_seeded(SEED + 112, 0), config=config, timings=phases, device=dev))
+        phases["prove"] = time.perf_counter() - t0
+        say(f"[15 gkr] prove, {label} branch: " + _times(phases))
+    launches = dict(kernels.LAUNCHES)
+    peak = _peak(torch, dev)
+    if _proof_image(proofs[0]) != _proof_image(proofs[1]):
+        fail("the GKR circuit's proofs differ between the default and the host branch")
+    check_prove_path(dev, "bn254", launches, setup_only, off_path, "the GKR prove")
+    wrong = [(pubs[0] + 1) % R] + pubs[1:]
+    pending = submit_verdicts(pool, "bn254", proofs[0], vk, pubs, wrong)
+    t0 = time.perf_counter()
+    why = _refused(lambda: solve(cs, dict(assign, o0=wrong[0])), "the GKR circuit with o0 + 1")
+    say(
+        f"[15 gkr] the two proofs are equal point for point; the solver refuses o0 + 1: {why} "
+        f"({time.perf_counter() - t0:.4f} s) | peak device memory after the proves {peak:.3f} GB | launches of the "
+        "host-branch prove: "
+        + _fmt({k: v for k, v in launches.items() if v})
+    )
+    del pk, cs
+    return launches, pending
+
+
+def phase_contracts(chain, plonk_proved):
+    """Section (c) of phase 15: phase 5's BN254 chain proof through the
+    port's Groth16 Solidity contract and phase 9's PLONK proof through its
+    PLONK contract, both run on testing/solidity_exec.py: each accepts and
+    reverts on a wrong public input; a Witness of phase 5's assignment
+    through to_bytes and from_bytes."""
+    from tpusnark_torch.backend.groth16 import solidity as g16_sol
+    from tpusnark_torch.backend.plonk import solidity as plonk_sol
+    from tpusnark_torch.backend.witness import Witness
+    from tpusnark_torch.curves.ref import R
+    from tpusnark_torch.testing.solidity_exec import Contract, ContractRevert
+
+    for name, mod, proved in (("Groth16", g16_sol, chain), ("PLONK", plonk_sol, plonk_proved)):
+        pubs = [proved.assign[k] % R for k in proved.cs.public_names if k != "1"]
+        t0 = time.perf_counter()
+        contract = Contract(mod.export_solidity(proved.vk))
+        words = mod.proof_to_solidity_calldata(proved.proof)
+        contract.call("verifyProof", words, pubs)  # reverts (raises) if it rejects
+        ok_s = time.perf_counter() - t0
+        try:
+            contract.call("verifyProof", words, [(pubs[0] + 1) % R] + pubs[1:])
+        except ContractRevert:
+            pass
+        else:
+            fail(f"the {name} contract accepted a wrong public input")
+        say(
+            f"[15 solidity] the {name} contract accepts the card's proof ({len(words)} calldata words, "
+            f"{ok_s:.4f} s with the export) and reverts on a wrong public input"
+        )
+    wit = Witness.from_assignment(chain.cs, chain.assign)
+    blob = wit.to_bytes()
+    back = Witness.from_bytes(blob)
+    if back != wit or Witness.from_bytes(wit.public().to_bytes()) != wit.public():
+        fail("phase 5's witness does not survive to_bytes and from_bytes")
+    say(f"[15 witness] phase 5's witness ({wit.n_public} public, {wit.n_secret} secret) round-trips in {len(blob)} bytes")
+
+
 # ---------------------------------------------------------------- main
 def main() -> None:
     try:
@@ -3391,7 +3784,7 @@ def run() -> None:
     # host work in the workers, beside phases 7-9 (and after phase 3's
     # kernel timings, which the host's load moves)
     ceremony = phase_ceremony_start(torch, dev, pool)
-    phase_ntt_large(torch, dev, np_rng)
+    ntt_checks = phase_ntt_large(torch, dev, np_rng, pool)
     wide_solve = {curve: phase_wide_solve(torch, dev, curve) for curve in CURVES}
     _, wide_prove_launches, pending["wide"], wide = phase_wide_prove(
         torch, dev, pool, setup_only, off_path
@@ -3404,7 +3797,6 @@ def run() -> None:
         torch, dev, pool
     )
     ceremony_launches = phase_ceremony_full(torch, dev)
-    pending["ceremony"] = phase_ceremony_finish(torch, dev, pool, ceremony)
     shard_launches, shard_plonk_launches, pending["shard"] = phase_shard(
         torch, card, pool, np_rng, chain, wide, plonk_chain_proved, plonk_commit_vk
     )
@@ -3412,10 +3804,17 @@ def run() -> None:
     # workers, beside phases 12 and 13 (b)
     recursion_launches, pending["recursion"] = phase_recursion(torch, dev, pool, inner, setup_only, off_path)
     del inner
+    # phase 10 (b)'s second half: by now its init_phase2 in a worker is done
+    pending["ceremony"] = phase_ceremony_finish(torch, dev, pool, ceremony)
     pending["examples"] = phase_examples(torch, dev, pool)
     rollup_launches, pending["rollup"] = phase_rollup(torch, dev, pool, setup_only, off_path)
     rangecheck_launches, pending["rangecheck"] = phase_rangecheck(torch, dev, pool, setup_only, off_path)
     ecadd_launches, pending["ecadd"] = phase_ecadd(torch, dev, pool, setup_only, off_path)
+    plonkfri_cpu = pool.apply_async(plonkfri_cpu_image, (PLONKFRI_CHECK_LOG2,))  # beside phase 15 (b)
+    gkr_launches, pending["gkr"] = phase_gkr(torch, dev, pool, setup_only, off_path)
+    plonkfri_launches = phase_plonkfri(torch, dev, plonkfri_cpu)
+    phase_contracts(chain, plonk_chain_proved)
+    collect_ntt_checks(ntt_checks)
     for curve in CURVES:
         collect_verdicts(curve, LOG2_CONSTRAINTS, pending[curve])
     collect_verdicts("bn254", f"{LOG2_CONSTRAINTS} wide and commit", pending["wide"])
@@ -3427,6 +3826,7 @@ def run() -> None:
     collect_verdicts(RECURSION_OUTER, f"{RECURSION_LOG2} 2-chain", pending["recursion"])
     collect_verdicts("bn254", f"{RANGE_LOG2} range check", pending["rangecheck"])
     collect_verdicts("bn254", f"{ECADD_LOG2} ECADD batch", pending["ecadd"])
+    collect_verdicts("bn254", f"{GKR_LOG2} GKR", pending["gkr"])
     stop_workers()
     for mod in ("jax", "tpusnark"):
         if mod in sys.modules:
@@ -3468,6 +3868,8 @@ def run() -> None:
                             "launches_rollup_prove": rollup_launches[name],
                             "launches_rangecheck_prove": rangecheck_launches[name],
                             "launches_ecadd_prove": ecadd_launches[name],
+                            "launches_gkr_prove": gkr_launches[name],
+                            "launches_plonkfri_prove": plonkfri_launches[name],
                         }
                         if curve == "bn254"
                         else {}
@@ -3477,7 +3879,7 @@ def run() -> None:
                     **({"absorbs": ABSORBS[op]} if (op := name.split("[")[0]) in ABSORBS else {}),
                 )
             )
-    say(f"[15 done] {time.perf_counter() - t_start:.1f} s in all")
+    say(f"[16 done] {time.perf_counter() - t_start:.1f} s in all")
     say(json.dumps({"kernels": rows}))
     say(card)
     say(

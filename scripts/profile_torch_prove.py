@@ -2,7 +2,7 @@
 """Phase times and device busy share of the port's Groth16 or PLONK prove, or
 of an MPC ceremony contribution, on one GPU.
 
-    python3 scripts/profile_torch_prove.py [--curves bw6-761,bls12-377] [--proves 4] [--circuit wide|plonk|ceremony|rollup|recursion|rangecheck|ecadd]
+    python3 scripts/profile_torch_prove.py [--curves bw6-761,bls12-377] [--proves 4] [--circuit wide|plonk|ceremony|rollup|recursion|rangecheck|ecadd|plonkfri|gkr]
 
 Per curve, on chip_smoke.py's 2^17 multiplication chain (or, with
 ``--circuit wide``, its wide circuit, with a BSB22 commitment over BN254):
@@ -27,8 +27,13 @@ verified in one circuit: 92,902 constraints, a 2^17 domain; the shape rule's
 host solver); with ``--circuit rangecheck`` its commit-based range check
 over BN254 (1,024 values of 64 bits, a 2^15 domain); with ``--circuit
 ecadd`` its batch of 32 EIP-196 ECADD calls over BN254 (emulated Fp in
-64-bit limbs: 852,416 constraints in 17 levels, a 2^20 domain); each of
-these two through both solver branches in turns. From the
+64-bit limbs: 852,416 constraints in 17 levels, a 2^20 domain); with
+``--circuit gkr`` its GKR circuit over BN254 (8 batched instances verified
+in circuit: 91,886 constraints, a 2^17 domain); each of these three
+through both solver branches in turns. With ``--circuit plonkfri`` the
+prove is PlonkFRI over BN254 on chip_smoke.py's PLONK chain at 2^14 gates
+(default FriParams: an LDE domain of 2^17), its phase times with the
+Merkle trees' host hashing (``merkle``) apart. From the
 profile it prints the device time by kernel, the
 device busy time (kernel intervals merged, so that overlapping kernels count
 once) and the idle share of that prove's wall time. Every line of numbers
@@ -152,18 +157,21 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--curves", default="bls24-315,bls24-317,bw6-761,bw6-633,bls12-377,bls12-381,bn254")
     ap.add_argument("--proves", type=int, default=4)
-    ap.add_argument("--log2n", type=int, default=chip_smoke.LOG2_CONSTRAINTS)
+    ap.add_argument("--log2n", type=int, default=None)
     ap.add_argument(
-        "--circuit", choices=("chain", "wide", "plonk", "ceremony", "rollup", "recursion", "rangecheck", "ecadd"),
+        "--circuit",
+        choices=("chain", "wide", "plonk", "ceremony", "rollup", "recursion", "rangecheck", "ecadd", "plonkfri", "gkr"),
         default="chain",
     )
     args = ap.parse_args()
+    if args.log2n is None:
+        args.log2n = chip_smoke.PLONKFRI_LOG2 if args.circuit == "plonkfri" else chip_smoke.LOG2_CONSTRAINTS
     torch, card = chip_smoke.phase_card()
     if args.circuit == "ceremony":
         return profile_ceremony(torch, card, args)
     from tpusnark_torch import kernels
     from tpusnark_torch.backend.config import ProverConfig
-    from tpusnark_torch.backend import plonk
+    from tpusnark_torch.backend import plonk, plonkfri
     from tpusnark_torch.backend.groth16 import prove, setup
     from tpusnark_torch.curves.config import get_curve
     from tpusnark_torch.poly import kzg
@@ -172,9 +180,9 @@ def main() -> None:
     dev = torch.device("cuda")
     # the solver branches each prove runs through, in turns
     both = {" device": None, " host": ProverConfig().with_accelerator("host")}
-    branches = both if args.circuit in ("wide", "rollup", "rangecheck", "ecadd") else {"": None}
-    if args.circuit in ("plonk", "rollup", "rangecheck", "ecadd"):
-        args.curves = "bn254"  # PLONK, the rollup, BSB22 and the EVM's ECADD are BN254-only, as in tpusnark
+    branches = both if args.circuit in ("wide", "rollup", "rangecheck", "ecadd", "gkr") else {"": None}
+    if args.circuit in ("plonk", "rollup", "rangecheck", "ecadd", "plonkfri", "gkr"):
+        args.curves = "bn254"  # PLONK, PlonkFRI, the rollup, BSB22, ECADD and GKR's circuit are BN254-only
     elif args.circuit == "recursion":
         args.curves = chip_smoke.RECURSION_OUTER
     for curve in args.curves.split(","):
@@ -182,8 +190,10 @@ def main() -> None:
         t0 = time.perf_counter()
         if args.circuit == "chain":
             cs, assign = chip_smoke.mul_chain(args.log2n, p)
-        elif args.circuit == "plonk":
+        elif args.circuit in ("plonk", "plonkfri"):
             cs, assign = chip_smoke.plonk_chain(args.log2n, p)
+        elif args.circuit == "gkr":
+            cs, assign, _ = chip_smoke.gkr_circuit(chip_smoke.GKR_INSTANCES, chip_smoke.SEED + 110)
         elif args.circuit == "rollup":
             from tpusnark_torch.examples import rollup
             from tpusnark_torch.frontend.builder import Builder
@@ -207,17 +217,19 @@ def main() -> None:
             assign, _ = chip_smoke.ecadd_inputs(chip_smoke.ECADD_CALLS, chip_smoke.SEED + 100)
         else:
             cs, assign = chip_smoke.wide_circuit(args.log2n, p, commit=curve == "bn254")
-        size = f"{cs.n_gates} gates" if args.circuit == "plonk" else f"{len(cs.constraints)} constraints"
+        size = f"{cs.n_gates} gates" if args.circuit in ("plonk", "plonkfri") else f"{len(cs.constraints)} constraints"
         print(f"[{card}] {curve} {args.circuit} circuit: {size}, compiled in "
               f"{time.perf_counter() - t0:.4f} s", flush=True)
         rng = random.Random(chip_smoke.SEED)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        setup_t: dict = {}  # Groth16 setup's phases
+        setup_t: dict = {}  # Groth16's and PlonkFRI's setup phases
         if args.circuit == "plonk":
             n = 1 << (cs.n_gates - 1).bit_length()
             srs = kzg.new_srs_unsafe(n + 3, tau=rng.randrange(2, p), device=dev)
             pk, _ = plonk.setup(cs, srs=srs, device=dev)
+        elif args.circuit == "plonkfri":
+            pk, _ = plonkfri.setup(cs, device=dev, timings=setup_t)
         else:
             pk, _ = setup(cs, rng=lambda: rng.randrange(1, cs.modulus), device=dev, curve=curve, timings=setup_t)
         print(f"[{card}] {curve} setup {time.perf_counter() - t0:.4f} s "
@@ -228,6 +240,8 @@ def main() -> None:
         def prove_once(timings=None, config=None):
             if args.circuit == "plonk":
                 return plonk.prove(cs, pk, assign, rng=lambda: prng.randrange(1, p), timings=timings)
+            if args.circuit == "plonkfri":
+                return plonkfri.prove(cs, pk, assign, timings=timings, device=dev)
             return prove(
                 cs, pk, assign, rng=lambda: prng.randrange(cs.modulus), config=config, timings=timings, device=dev
             )

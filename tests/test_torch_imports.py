@@ -55,7 +55,10 @@ IMPORT_ALL = BLOCK + textwrap.dedent(
                  "gadgets.keccakf", "gadgets.sha3", "utils.mimc_transcript", "gadgets.native_tower",
                  "gadgets.sw_native", "gadgets.recursion_native", "gadgets.emulated", "gadgets.sw_emulated",
                  "gadgets.fields_tower", "gadgets.pairing", "gadgets.recursion", "gadgets.kzg_verifier",
-                 "gadgets.recursion_plonk", "gadgets.evmprecompiles"):
+                 "gadgets.recursion_plonk", "gadgets.evmprecompiles", "protocols", "protocols.multilinear",
+                 "protocols.sumcheck", "protocols.gkr", "gadgets.gkr_compile", "poly.fri", "backend.plonkfri",
+                 "backend.plonkfri.scheme", "constraint.serialize", "backend.witness", "stats",
+                 "testing.circuits", "testing.gobstats", "testing.solidity_exec"):
         assert "tpusnark_torch." + name in names, name
     assert "tpusnark_torch._host" not in names
     assert sys.modules["jax"] is None and sys.modules["tpusnark"] is None
@@ -300,6 +303,53 @@ CEREMONY = BLOCK + textwrap.dedent(
     print("ceremony ok")
     """
 )
+
+
+# The last modules at a tiny size: a PlonkFRI setup, prove and verify on the
+# CPU, the serialized system proving the same proof, the stats baseline, a
+# GKR proof and its verifier, and one corpus entry through the engine.
+LAST_MODULES = BLOCK + textwrap.dedent(
+    """
+    from tpusnark_torch.backend import plonkfri
+    from tpusnark_torch.backend.witness import Witness
+    from tpusnark_torch.constraint import serialize
+    from tpusnark_torch.frontend.plonk_builder import PlonkBuilder
+    from tpusnark_torch.poly.fri import FriParams
+    from tpusnark_torch.protocols import gkr
+    from tpusnark_torch import stats
+    from tpusnark_torch.testing.circuits import CORPUS
+    from tpusnark_torch.testing.engine import is_solved
+
+    from tpusnark_torch.fields.spec import BN254_FR
+
+    p = BN254_FR.modulus
+    b = PlonkBuilder(p)
+    x, y = b.secret("x"), b.public("y")
+    b.assert_is_equal(b.add(b.mul(x, x, x), x, 5), y)
+    cs = b.compile()
+    pk, vk = plonkfri.setup(cs, FriParams(8, 8, 4), device="cpu")
+    proof = plonkfri.prove(cs, pk, {{"x": 3, "y": 35}}, device="cpu")
+    assert plonkfri.verify(proof, vk, [35]) and not plonkfri.verify(proof, vk, [36])
+    again = plonkfri.prove(serialize.load(serialize.dump(cs)), pk, {{"x": 3, "y": 35}}, device="cpu")
+    assert again == proof
+    w = Witness.from_assignment(cs, {{"x": 3, "y": 35}})
+    assert Witness.from_bytes(w.to_bytes()) == w
+    assert stats.check_against_baseline() == []
+    c = gkr.LayeredCircuit([[gkr.Gate(gkr.MUL, 0, 1), gkr.Gate(gkr.ADD, 0, 1)]], n_inputs=2)
+    outs, gproof = gkr.prove(c, [3, 5], p)
+    assert outs == [15, 8] and gkr.verify(c, [3, 5], outs, gproof, p)
+    assert all(is_solved(CORPUS["cubic"].define, p, a) for a in CORPUS["cubic"].valid)
+    assert sys.modules["jax"] is None and sys.modules["tpusnark"] is None
+    assert not [m for m in sys.modules if m.startswith(("jax.", "tpusnark."))]
+    print("last modules ok")
+    """
+)
+
+
+def test_last_modules_run_without_jax_and_tpusnark():
+    res = _run([sys.executable, "-c", LAST_MODULES.format(root=ROOT)], ROOT)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("last modules ok")
 
 
 def test_ceremony_runs_without_jax_and_tpusnark():

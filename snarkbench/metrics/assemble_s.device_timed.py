@@ -1,0 +1,8 @@
+"""assemble_s.device_timed: ``assemble_s`` (``assemble_s.py``) in the cells whose
+end-to-end time is the card's, ``prove_device_s``."""
+
+from pathlib import Path
+
+from snarkbench.harness import load_file
+
+read = load_file(Path(__file__).with_name("assemble_s.py"), "metric").read

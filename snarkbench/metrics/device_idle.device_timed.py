@@ -1,0 +1,8 @@
+"""device_idle.device_timed: ``device_idle`` (``device_idle.py``) in the cells whose
+end-to-end time is the card's, ``prove_device_s``."""
+
+from pathlib import Path
+
+from snarkbench.harness import load_file
+
+read = load_file(Path(__file__).with_name("device_idle.py"), "metric").read

@@ -18,10 +18,10 @@ knowledge.
 from __future__ import annotations
 
 import secrets
-import time
 
 import torch
 
+from ... import trace
 from ...constraint.eval_torch import abc_evaluator
 from ...constraint.hints import bsb22_placeholder
 from ...constraint.solver_torch import solve_any
@@ -89,20 +89,19 @@ def prove(cs, pk, assignment: dict, rng=None, config=None, timings: dict | None 
     run them).
 
     `timings`: optional dict filled with per-phase wall-clock seconds; timing
-    synchronises the device between phases, so pass it only to measure."""
+    synchronises the device between phases, so pass it only to measure. The
+    phases are the spans ``groth16.<phase>`` of ``tpusnark_torch.trace``."""
     cfg = ported_curve(pk.curve)
     if cs.commitments and cfg.name != "bn254":
         raise NotImplementedError("BSB22 commitments are BN254-only for now")
     device = compute_device(device)
+    with trace.span("groth16.prove"):
+        return _prove(cs, pk, assignment, rng, config, timings, device, cfg)
 
-    def mark(name, t0):
-        if timings is None:
-            return 0.0
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        t = time.perf_counter()
-        timings[name] = timings.get(name, 0.0) + (t - t0)
-        return t
+
+def _prove(cs, pk, assignment, rng, config, timings, device, cfg):
+    def phase(name):
+        return trace.phase(f"groth16.{name}", timings, name, device)
 
     pcfg = resolve(config, rng)
     fr, fp = get_field(cfg.fr_spec), get_field(cfg.fp_spec)
@@ -115,73 +114,77 @@ def prove(cs, pk, assignment: dict, rng=None, config=None, timings: dict | None 
     # hash-to-field challenge (tpusnark prove.py:155-170)
     overrides, proof_commitments, private_vals = bsb22_prover_state(cs, pk)
     overrides = {**(overrides or {}), **pcfg.hint_overrides}
-    t0 = time.perf_counter()
-    w_mont, abc, W = solve_any(
-        cs,
-        assignment,
-        cfg.fr_spec,
-        hint_overrides=overrides or None,
-        force_host=pcfg.accelerator == "host",
-        logs=pcfg.solver_logs,
-        device=device,
-    )
-    t0 = mark("solve", t0)
+    with phase("solve"):
+        w_mont, abc, W = solve_any(
+            cs,
+            assignment,
+            cfg.fr_spec,
+            hint_overrides=overrides or None,
+            force_host=pcfg.accelerator == "host",
+            logs=pcfg.solver_logs,
+            device=device,
+        )
     n = pk.domain_n
 
     def wire_ints(idxs):
         if W is not None:
             return [W[i] for i in idxs]
+        trace.count("h2d_bytes", 8 * len(idxs))
         return fr.decode(w_mont[:, torch.tensor(idxs, dtype=torch.int64, device=device)])
 
-    pok = None
-    if cs.commitments:
-        seeds = b"".join(
-            int(v).to_bytes(32, "big") for v in wire_ints([cm.commitment_index for cm in cs.commitments])
-        )
-        pok = pedersen_batch_prove(pk.commitment_keys, private_vals, seeds)
-    if W is not None:  # the host solver's W: A/B/C evaluated on the device
-        A, B, C = abc_evaluator(cs, fr, device)(fr.encode(W, mont=True, device=device))
-        w_dev = fr.encode(W, mont=False, device=device)
-    else:  # W stays on the device; A/B/C come from the solver's bulk check
-        A, B, C = abc
-        w_dev = fr.from_mont(w_mont)
-    t0 = mark("encode", t0)
-    h_dev = compute_h_dev(A, B, C, n, cfg.fr_spec)
-    t0 = mark("h", t0)
+    with phase("encode"):
+        pok = None
+        if cs.commitments:
+            seeds = b"".join(
+                int(v).to_bytes(32, "big") for v in wire_ints([cm.commitment_index for cm in cs.commitments])
+            )
+            pok = pedersen_batch_prove(pk.commitment_keys, private_vals, seeds)
+        if W is not None:  # the host solver's W: A/B/C evaluated on the device
+            A, B, C = abc_evaluator(cs, fr, device)(fr.encode(W, mont=True, device=device))
+            w_dev = fr.encode(W, mont=False, device=device)
+        else:  # W stays on the device; A/B/C come from the solver's bulk check
+            A, B, C = abc
+            w_dev = fr.from_mont(w_mont)
+    with phase("h"):
+        h_dev = compute_h_dev(A, B, C, n, cfg.fr_spec)
 
-    dev = device_tables(pk, device)
-    msm_g1 = get_msm_for("g1", cs.n_wires, cfg.name)
-    msm_g2 = get_msm_for("g2", cs.n_wires, cfg.name)
-    # the wires pk.K stands for: the private ones but the committed and the
-    # commitment wires, whose K is in the Pedersen basis or the vk
-    k_wires = pk.k_wires if pk.k_wires is not None else k_pk_wires_for(cs)
-    priv = w_dev[:, torch.tensor(k_wires, dtype=torch.int64, device=device)]
-    ar_raw = msm_g1(dev["a"], w_dev)
-    bs1_raw = msm_g1(dev["b1"], w_dev)
-    bs2_raw = msm_g2(dev["b2"], w_dev)
-    krs_k = msm_g1(dev["k"], priv)
-    krs_z_raw = msm_g1(dev["z"], h_dev) if len(pk.z) else None
-    t0 = mark("msm", t0)
+    with phase("msm"):
+        dev = device_tables(pk, device)
+        msm_g1 = get_msm_for("g1", cs.n_wires, cfg.name)
+        msm_g2 = get_msm_for("g2", cs.n_wires, cfg.name)
+        with trace.span("groth16.msm.index"):
+            # the wires pk.K stands for: the private ones but the committed and
+            # the commitment wires, whose K is in the Pedersen basis or the vk
+            k_wires = pk.k_wires if pk.k_wires is not None else k_pk_wires_for(cs)
+            trace.count("h2d_bytes", 8 * len(k_wires))
+            priv = w_dev[:, torch.tensor(k_wires, dtype=torch.int64, device=device)]
+        ar_raw = msm_g1(dev["a"], w_dev)
+        bs1_raw = msm_g1(dev["b1"], w_dev)
+        bs2_raw = msm_g2(dev["b2"], w_dev)
+        krs_k = msm_g1(dev["k"], priv)
+        krs_z_raw = msm_g1(dev["z"], h_dev) if len(pk.z) else None
 
-    (ar_sum,) = g1_from_device_proj(ar_raw, fp)
-    (bs1_sum,) = g1_from_device_proj(bs1_raw, fp)
-    if cfg.g2_over_fp:  # G2 points are plain int pairs: the G1 decoder
-        (bs2_sum,) = g1_from_device_proj(bs2_raw, fp)
-    elif cfg.g2_fp4:
-        (bs2_sum,) = g4_from_device_proj(bs2_raw, fp, cfg.host.Fp4, cfg.host.Fp2)
-    else:
-        (bs2_sum,) = g2_from_device_proj(bs2_raw, fp, cfg.host.Fp2, cfg.fp2_q)
-    (krs_k_sum,) = g1_from_device_proj(krs_k, fp)
-    # a 1-constraint domain has deg(H) < 0 and an empty Z table
-    krs_z_sum = None if krs_z_raw is None else g1_from_device_proj(krs_z_raw, fp)[0]
+    with phase("assemble"):
+        with trace.span("groth16.assemble.decode"):
+            (ar_sum,) = g1_from_device_proj(ar_raw, fp)
+            (bs1_sum,) = g1_from_device_proj(bs1_raw, fp)
+            if cfg.g2_over_fp:  # G2 points are plain int pairs: the G1 decoder
+                (bs2_sum,) = g1_from_device_proj(bs2_raw, fp)
+            elif cfg.g2_fp4:
+                (bs2_sum,) = g4_from_device_proj(bs2_raw, fp, cfg.host.Fp4, cfg.host.Fp2)
+            else:
+                (bs2_sum,) = g2_from_device_proj(bs2_raw, fp, cfg.host.Fp2, cfg.fp2_q)
+            (krs_k_sum,) = g1_from_device_proj(krs_k, fp)
+            # a 1-constraint domain has deg(H) < 0 and an empty Z table
+            krs_z_sum = None if krs_z_raw is None else g1_from_device_proj(krs_z_raw, fp)[0]
 
-    # host assembly (tpusnark prove.py:254-261)
-    ar = G1.add(G1.add(pk.alpha_g1, ar_sum), G1.mul(pk.delta_g1, r))
-    bs = G2.add(G2.add(pk.beta_g2, bs2_sum), G2.mul(pk.delta_g2, s))
-    bs1 = G1.add(G1.add(pk.beta_g1, bs1_sum), G1.mul(pk.delta_g1, s))
-    krs = G1.add(krs_k_sum, krs_z_sum)
-    krs = G1.add(krs, G1.mul(ar, s))
-    krs = G1.add(krs, G1.mul(bs1, r))
-    krs = G1.add(krs, G1.mul(pk.delta_g1, (-r * s) % p))
-    mark("assemble", t0)
+        # host assembly (tpusnark prove.py:254-261)
+        with trace.span("groth16.assemble.host"):
+            ar = G1.add(G1.add(pk.alpha_g1, ar_sum), G1.mul(pk.delta_g1, r))
+            bs = G2.add(G2.add(pk.beta_g2, bs2_sum), G2.mul(pk.delta_g2, s))
+            bs1 = G1.add(G1.add(pk.beta_g1, bs1_sum), G1.mul(pk.delta_g1, s))
+            krs = G1.add(krs_k_sum, krs_z_sum)
+            krs = G1.add(krs, G1.mul(ar, s))
+            krs = G1.add(krs, G1.mul(bs1, r))
+            krs = G1.add(krs, G1.mul(pk.delta_g1, (-r * s) % p))
     return Proof(ar=ar, krs=krs, bs=bs, commitments=proof_commitments, commitment_pok=pok)

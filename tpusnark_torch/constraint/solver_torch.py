@@ -24,7 +24,8 @@ operations over all of its instructions:
     check: tpusnark evaluates it in its level and writes nothing;
   * hints sync to the host once per hint-bearing level: their inputs are
     evaluated on the device, decoded, run in Python, re-encoded and
-    scattered;
+    scattered (the spans ``solver.hints.{wait,decode,run,encode}`` of
+    ``tpusnark_torch.trace``);
   * satisfaction is checked in one bulk pass at the end (A_i * B_i == C_i
     for every constraint, through the port's ABCEvaluator), whose A/B/C the
     Groth16 prover takes as they are.
@@ -36,9 +37,12 @@ runs.
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
+from .. import trace
 from ..fields.spec import FieldSpec
 from ..fields.tfield import Field, compute_device, get_field
 from .eval_torch import abc_evaluator
@@ -154,20 +158,31 @@ class LevelSolver:
     def _run_hints(self, W, plan, overrides):
         """One host sync for all of a level's hints."""
         f, p = self.f, self.cs.modulus
-        vals = f.decode(self._eval(W, plan.n_hint_inputs, *plan.hint_terms))
+        ins = self._eval(W, plan.n_hint_inputs, *plan.hint_terms)
+        with trace.span("solver.hints.wait"):
+            trace.wait(W.device)
+        with trace.span("solver.hints.decode"):
+            vals = f.decode(ins)
+        rec = trace.current()
         out_wires, out_vals = [], []
         off = 0
-        for h in plan.hints:
-            fn = overrides.get(hint_name(h.fn), h.fn) if overrides else h.fn
-            n_in = len(h.inputs)
-            outs = fn(p, vals[off : off + n_in])
-            off += n_in
-            if len(outs) != len(h.outputs):
-                raise RuntimeError(f"hint {hint_name(h.fn)}: {len(outs)} outputs, want {len(h.outputs)}")
-            out_wires.extend(h.outputs)
-            out_vals.extend(int(v) % p for v in outs)
-        idx = torch.tensor(out_wires, dtype=torch.int64, device=W.device)
-        W[:, idx] = f.encode(out_vals, mont=True, device=W.device)
+        with trace.span("solver.hints.run"):
+            for h in plan.hints:
+                fn = overrides.get(hint_name(h.fn), h.fn) if overrides else h.fn
+                n_in = len(h.inputs)
+                t0 = time.perf_counter_ns() if rec is not None else 0
+                outs = fn(p, vals[off : off + n_in])
+                if rec is not None:
+                    rec.add_hint(hint_name(h.fn), time.perf_counter_ns() - t0)
+                off += n_in
+                if len(outs) != len(h.outputs):
+                    raise RuntimeError(f"hint {hint_name(h.fn)}: {len(outs)} outputs, want {len(h.outputs)}")
+                out_wires.extend(h.outputs)
+                out_vals.extend(int(v) % p for v in outs)
+        with trace.span("solver.hints.encode"):
+            trace.count("h2d_bytes", 8 * len(out_wires))
+            idx = torch.tensor(out_wires, dtype=torch.int64, device=W.device)
+            W[:, idx] = f.encode(out_vals, mont=True, device=W.device)
 
     def solve_with_abc(self, assignment: dict, hint_overrides: dict | None = None):
         """-> (W, (A, B, C)): W the (words, n_wires) Montgomery wire vector
@@ -197,10 +212,13 @@ class LevelSolver:
         overrides = {k if isinstance(k, str) else hint_name(k): v for k, v in (hint_overrides or {}).items()}
         for plan in self.plans:
             if plan.nI:
-                self._run_level(W, plan)
+                with trace.span("solver.level"):
+                    self._run_level(W, plan)
             if plan.hints:
-                self._run_hints(W, plan, overrides)
-        return W, self._check(W)
+                with trace.span("solver.hints"):
+                    self._run_hints(W, plan, overrides)
+        with trace.span("solver.check"):
+            return W, self._check(W)
 
     def solve(self, assignment: dict, hint_overrides: dict | None = None):
         """The (words, n_wires) Montgomery wire vector on the device."""
@@ -212,6 +230,8 @@ class LevelSolver:
         f = self.f
         A, B, C = abc_evaluator(self.cs, f, self.device)(W)
         bad = ~f.eq(f.mul(A, B), C)
+        trace.count("sync")
+        trace.count("d2h_bytes", 1)
         if bool(bad.any()):
             idx = int(bad.nonzero()[0, 0])
             raise UnsatisfiedConstraintError(idx, self.cs.debug_str(idx))

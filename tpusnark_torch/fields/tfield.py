@@ -32,7 +32,7 @@ import functools
 import numpy as np
 import torch
 
-from .. import kernels
+from .. import kernels, trace
 from .spec import FieldSpec
 
 M16 = 0xFFFF
@@ -270,10 +270,15 @@ class Field:
 
     def encode(self, xs, mont: bool = True, device="cpu") -> torch.Tensor:
         """Python ints -> (words, len(xs)) words on `device`."""
-        return torch.from_numpy(ints_to_words(self.spec, xs, mont)).to(device)
+        words = ints_to_words(self.spec, xs, mont)
+        trace.count("h2d_bytes", words.nbytes)
+        return torch.from_numpy(words).to(device)
 
     def decode(self, a: torch.Tensor, mont: bool = True) -> list[int]:
-        """(words, *batch) -> flat list of ints mod p (batch row-major)."""
+        """(words, *batch) -> flat list of ints mod p (batch row-major); the
+        host waits for `a`."""
+        trace.count("sync")
+        trace.count("d2h_bytes", a.numel() * a.element_size())
         return words_to_ints(self.spec, a, mont)
 
     def const(self, x: int, mont: bool = False, device="cpu") -> torch.Tensor:
@@ -283,6 +288,7 @@ class Field:
         if c is None:
             v = self.to_mont_int(x) if mont else int(x) % self.modulus
             c = _pack(_int_words(v, self.n)).to(device)
+            trace.count("h2d_bytes", c.numel() * c.element_size())
             self._consts[key] = c
         return c
 

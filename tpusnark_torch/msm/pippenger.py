@@ -40,6 +40,7 @@ import functools
 
 import torch
 
+from .. import trace
 from ..curves.tcurve import CurveOps
 from ..fields.tfield import Field
 
@@ -183,11 +184,13 @@ class MSM:
     def __call__(self, points_affine, scalars_norm):
         """points: (X, Y, inf), coords (words, N); scalars: (words, N)
         NORMAL-form words. Returns a projective point with batch 1."""
-        return self._msm_core(points_affine, scalars_norm[:, None, :])
+        with trace.span("pippenger.msm"):
+            return self._msm_core(points_affine, scalars_norm[:, None, :])
 
     def many(self, points_affine, scalars_norm_k):
         """k MSMs over shared points: scalars (words, k, N). Returns batch k."""
-        return self._msm_core(points_affine, scalars_norm_k)
+        with trace.span("pippenger.msm"):
+            return self._msm_core(points_affine, scalars_norm_k)
 
     # ------------------------------------------------------------ tiny N
     def _ladder(self, points_affine, scalars):

@@ -984,7 +984,8 @@ def phase_msm_kernels(torch, curve, np_rng, n_wires, dev):
         msm = get_msm_for(group, n_wires, curve)
         W, c = msm.n_windows, msm.c
         C, R = msm.strip_shape(n_wires)
-        sent = msm.nbuckets + 1
+        dead = msm.nbuckets  # DEAD: the first key that reaches no bucket
+        sent = dead + 1
         d = ops.degree
         imads = PRODUCTS_PER_MUL[d] * mont_imads(fp.n)
         b3_products = 0 if (d == 1 and ops.fa.b3 == 9) else 2
@@ -996,7 +997,7 @@ def phase_msm_kernels(torch, curve, np_rng, n_wires, dev):
             return (X, Y), skey, order, ssgn
 
         def run_strip_mixed(XY, skey, order, ssgn, C, R):
-            fk, fp_ = msm._strip_mixed(skey, order, ssgn, XY, 1, C, R, sent)
+            fk, fp_ = msm._strip_mixed(skey, order, ssgn, XY, 1, C, R, dead, sent)
             return [fk] + flat(fp_)
 
         def strip_loop(XY, skey, order, ssgn, C, R):
@@ -1004,12 +1005,13 @@ def phase_msm_kernels(torch, curve, np_rng, n_wires, dev):
             the card, the plain group law on the CPU)."""
             Xg, Yg = msm._gather_bases(XY, 1, C * R, order)
             Yg = ops.fa.select(ssgn, ops.fa.neg(Yg), Yg)
-            fk, fp_ = msm._strip_flush(skey, (Xg, Yg), C, R, sent, mixed=True)
+            fk, fp_ = msm._strip_flush(skey, (Xg, Yg), C, R, dead, sent, mixed=True)
             return [fk] + flat(fp_)
 
-        def adds_of(skey, C, R):
+        def adds_of(skey, C, R, dead):
+            """The adds a strip pass makes: a row in its key's run, below dead."""
             k2 = skey.reshape(skey.shape[0], C, R)
-            return int((k2[..., 1:] == k2[..., :-1]).sum())
+            return int(((k2[..., 1:] == k2[..., :-1]) & (k2[..., 1:] < dead)).sum())
 
         # --- the strip pass over the bases: B5
         # cut to 8 strips a window against the plain loop on the CPU
@@ -1028,7 +1030,7 @@ def phase_msm_kernels(torch, curve, np_rng, n_wires, dev):
         want = strip_loop(XY, skey, order, ssgn, C, R)  # also warms the allocator for the timed run
         torch.cuda.synchronize()
         _, loop_ms = _time_host(lambda: (strip_loop(XY, skey, order, ssgn, C, R), torch.cuda.synchronize())[0])
-        adds = adds_of(skey, C, R)
+        adds = adds_of(skey, C, R, dead)
         n_rec = W * (R + 1) * C
         byts = 17 * W * C * R + 2 * row * n_wires + n_rec * (8 + 3 * row)
         record(
@@ -1053,16 +1055,17 @@ def phase_msm_kernels(torch, curve, np_rng, n_wires, dev):
         del fkeys, fpts
         C2 = max(128, min(1024, 1 << max(0, (K - 1).bit_length() - 5)))
         R2 = -(-K // C2)
-        sent2 = (msm.nbuckets >> 8) + 1
+        dead2 = msm.nbuckets >> 8  # the hi pass's dropped overflow key
+        sent2 = dead2 + 1
         skey2 = _pad_last(skey2, C2 * R2, sent2)
         pts2 = tree_map(lambda a: _pad_last(a, C2 * R2), pts2)
 
         def run_strip(skey, pts, C, R):
-            fk, fp_ = msm._strip(skey, pts, C, R, sent2)
+            fk, fp_ = msm._strip(skey, pts, C, R, dead2, sent2)
             return [fk] + flat(fp_)
 
         def strip_proj_loop(skey, pts, C, R):
-            fk, fp_ = msm._strip_flush(skey, pts, C, R, sent2, mixed=False)
+            fk, fp_ = msm._strip_flush(skey, pts, C, R, dead2, sent2, mixed=False)
             return [fk] + flat(fp_)
 
         # cut to the first 8 strips of every window against the plain CPU loop
@@ -1079,7 +1082,7 @@ def phase_msm_kernels(torch, curve, np_rng, n_wires, dev):
         want = strip_proj_loop(skey2, pts2, C2, R2)
         torch.cuda.synchronize()
         _, loop_ms = _time_host(lambda: (strip_proj_loop(skey2, pts2, C2, R2), torch.cuda.synchronize())[0])
-        adds = adds_of(skey2, C2, R2)
+        adds = adds_of(skey2, C2, R2, dead2)
         byts = W * C2 * R2 * (8 + 3 * row) + W * (R2 + 1) * C2 * (8 + 3 * row)
         record(
             f"{group}_strip[{curve}]",

@@ -194,7 +194,8 @@ def expected_counts(cs):
     """Per proof: one sync a hint level (its inputs decoded), the bulk
     check's flag, and 18 coordinates of the five MSM sums (four G1 points of
     3, one G2 point of 6); uploads: the inputs, each hint level's outputs
-    with their wire ids, and k_wires."""
+    with their wire ids, and k_wires. The MSM's core is replaced here, so
+    no strip pass counts records."""
     hint_in = hint_out = hint_levels = 0
     for lv in cs.compute_levels():
         hs = [cs.instructions[i][1] for i in lv if cs.instructions[i][0] == "hint"]
@@ -206,6 +207,8 @@ def expected_counts(cs):
         "sync": hint_levels + 1 + 18,
         "d2h_bytes": FP_BYTES * hint_in + 1 + FP_BYTES * 18,
         "h2d_bytes": FP_BYTES * n_in + (FP_BYTES + 8) * hint_out + 8 * len(k_pk_wires_for(cs)),
+        "msm_records": 0,
+        "msm_dead_records": 0,
     }
 
 

@@ -24,15 +24,28 @@
 // they replace, so every output equals the step-by-step composition of the
 // pointwise kernels coordinate by coordinate (not only as a group element).
 //
-// Bound on the H100: operations. A strip pass is R x lanes complete adds of
-// 11-14 Montgomery products (over Fp4 each is nine: ~3,700 multiply-adds at
-// 10 words) against two element rows read and three written per row-lane;
-// the accumulator no longer travels through device memory.
-// Parallelism is windows x strips lanes (32,768 at 16 windows): 64-thread
-// blocks put ~8 warps on an SM, so the integer pipes wait on their carry
-// chains; that is the occupancy the MSM's shape gives. The Horner is one
-// serial chain of (windows - 1)(c + 1) adds per result: its latency counts,
-// so eight threads share an add.
+// Records that reach no bucket cost nothing but their flush records: each
+// strip launch is told the first key that reaches no bucket (the DEAD key of
+// a zero digit, an infinity base or the padding; the dropped overflow keys of
+// the hi and lo passes), and a row at or past it skips its loads and its add,
+// its accumulator staying the identity. Sorted keys put those rows last in a
+// window, so a strip is live, dead or the one strip between, and a whole
+// warp skips. A kernel's products follow the live records, not the records.
+//
+// Bound on the H100: operations where the records are live. A strip pass is
+// up to R x lanes complete adds of 11-14 Montgomery products (over Fp4 each
+// is nine: ~3,700 multiply-adds at 10 words) against two element rows read
+// and three written per row-lane; the accumulator no longer travels through
+// device memory. Parallelism is windows x strips lanes (32,768 at 16
+// windows): 64-thread blocks put ~8 warps on an SM, so the integer pipes wait
+// on their carry chains; that is the occupancy a full-width MSM (random
+// scalars: every digit live) gives. A sparse MSM (a witness of bits: one live
+// digit in 16 windows) keeps only the strips of its live records busy, a few
+// thousand lanes each running a serial chain of R adds: it is bound by that
+// chain's latency, and below it by the flush records' stores, which every
+// row writes whatever its key. The Horner is one serial chain of (windows -
+// 1)(c + 1) adds per result: its latency counts, so eight threads share an
+// add.
 //
 // Layout of the bases (MIXED): the kernel reads word k of component c of
 // point i at in[c][k * word_stride + i * point_stride], so it takes any
@@ -58,7 +71,7 @@ struct MsmArgs {
   const int64_t* order;  // strip, MIXED: the base of each sorted record (W, C*R)
   const uint8_t* sign;   // strip, MIXED: records whose base is negated (W, C*R)
   int64_t* out_key;      // strip: flush keys (W, (R+1)*C)
-  int64_t n[8];          // sizes, per kernel (see each kernel)
+  int64_t n[9];          // sizes, per kernel (see each kernel)
   Const b3;              // 3b or 3b'
   Const one;             // 1 (over Fp2: (1, 0); over Fp4: ((1, 0), (0, 0)))
 };
@@ -68,22 +81,25 @@ constexpr int SCAN_THREADS = 128;
 constexpr int HORNER_THREADS = 32;
 
 // The strip pass. n = {W windows, C strips, R rows, ., ., ., ., sentinel
-// key}. Lane (w, s) walks records w*C*R + s*R + r, r < R. Before row r it
-// writes flush record (w, r*C + s): the accumulator, keyed by the
-// accumulator's key when row r starts another key and by the sentinel
-// otherwise; record (w, R*C + s) is the last accumulator. A row of the
-// accumulator's key is added to it, any other restarts it from the row's
-// point. MIXED (n[3..6] = N0 bases, M0 live records, word stride, point
-// stride of the bases): the row's point is base order % N0 (records past M0
-// are padding: the point (0, 0)), with Y negated where sign is set. Else
-// (n[3..4] = strip stride, row stride): the row's point is the projective
-// record of `in`, and its key that of `key`, at w*C*R + s*n[3] + r*n[4]: the
-// sorted order is (R, 1), where the lanes of a warp read 4R bytes apart; the
-// wrapper hands over a copy with strides (1, C), where they read side by side.
+// key, dropped key}. Lane (w, s) walks records w*C*R + s*R + r, r < R.
+// Before row r it writes flush record (w, r*C + s): the accumulator, keyed by
+// the accumulator's key when row r starts another key and by the sentinel
+// otherwise; record (w, R*C + s) is the last accumulator. A row whose key is
+// at or past the dropped key reaches no bucket: it reads no point and adds
+// nothing, and the accumulator becomes (stays, inside a run) the identity.
+// Any other row of the accumulator's key is added to it, any other restarts
+// it from the row's point. MIXED (n[3..6] = N0 bases, M0 live records, word
+// stride, point stride of the bases): the row's point is base order % N0
+// (records past M0 are padding: the point (0, 0)), with Y negated where sign
+// is set. Else (n[3..4] = strip stride, row stride): the row's point is the
+// projective record of `in`, and its key that of `key`, at w*C*R + s*n[3] +
+// r*n[4]: the sorted order is (R, 1), where the lanes of a warp read 4R bytes
+// apart; the wrapper hands over a copy with strides (1, C), where they read
+// side by side.
 template <class G, bool MIXED>
 __global__ void __launch_bounds__(STRIP_THREADS) k_strip(MsmArgs a) {
   using E = typename G::E;
-  const long W = a.n[0], C = a.n[1], R = a.n[2], sent = a.n[7];
+  const long W = a.n[0], C = a.n[1], R = a.n[2], sent = a.n[7], dead = a.n[8];
   const long lane = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= W * C) return;
   const long w = lane / C, s = lane % C;
@@ -98,6 +114,11 @@ __global__ void __launch_bounds__(STRIP_THREADS) k_strip(MsmArgs a) {
     const bool same = kk == acc_key;
     a.out_key[out + r * C] = same ? sent : acc_key;
     st_pt<G>(a.out, n_out, out + r * C, acc);
+    acc_key = kk;
+    if (kk >= dead) {
+      acc = {G::zero(), one, G::zero()};
+      continue;
+    }
     if constexpr (MIXED) {
       const long idx = a.order[rec + r];
       E X2 = G::zero(), Y2 = G::zero();
@@ -118,7 +139,6 @@ __global__ void __launch_bounds__(STRIP_THREADS) k_strip(MsmArgs a) {
       else
         acc = q;
     }
-    acc_key = kk;
   }
   a.out_key[out + R * C] = acc_key;
   st_pt<G>(a.out, n_out, out + R * C, acc);

@@ -490,7 +490,7 @@ class KernelCurveOps(CurveOps):
             self._fused = kernels.MsmKernels(f.spec, self.group == "g2", self._b3(), one_words)
         return self._fused
 
-    def strip_mixed(self, skey, order, sign, XY, n_records, C, R, sent):
+    def strip_mixed(self, skey, order, sign, XY, n_records, C, R, dead, sent):
         """kernels.MsmKernels.strip_mixed over the affine bases XY = (X, Y),
         each (words, N0). The kernel gathers the bases in the sort's order, so
         it is handed a point-major image of them, (N0, components, words) with
@@ -500,10 +500,10 @@ class KernelCurveOps(CurveOps):
         comps = self._components(XY)
         image = torch.stack([c.t() for c in comps], dim=1).contiguous()
         views = [image[:, i, :].t() for i in range(len(comps))]
-        fkeys, outs = self._msm_kernels().strip_mixed(skey, order, sign, views, n_records, C, R, sent)
+        fkeys, outs = self._msm_kernels().strip_mixed(skey, order, sign, views, n_records, C, R, dead, sent)
         return fkeys, self._point(outs)
 
-    def strip(self, skey, pts, C, R, sent):
+    def strip(self, skey, pts, C, R, dead, sent):
         """kernels.MsmKernels.strip over sorted projective records, skey (W,
         C*R) and coordinates (words, W, C*R). A strip's rows are contiguous
         there, so the lanes of a warp would read 4R bytes apart: the kernel
@@ -514,7 +514,7 @@ class KernelCurveOps(CurveOps):
             return split.transpose(-1, -2).contiguous().transpose(-1, -2)
 
         comps = [by_rows(c) for c in self._components(pts)]
-        fkeys, outs = self._msm_kernels().strip(by_rows(skey), comps, C, R, sent)
+        fkeys, outs = self._msm_kernels().strip(by_rows(skey), comps, C, R, dead, sent)
         return fkeys, self._point(outs)
 
     def scan_step(self, pts, shift, width, key=None):

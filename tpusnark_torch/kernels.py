@@ -571,7 +571,7 @@ class _MsmArgs(ctypes.Structure):
         ("order", ctypes.c_uint64),
         ("sign", ctypes.c_uint64),
         ("out_key", ctypes.c_uint64),
-        ("n", ctypes.c_int64 * 8),
+        ("n", ctypes.c_int64 * 9),
         ("b3", ctypes.c_uint32 * (2 * MAX_WORDS)),
         ("one", ctypes.c_uint32 * (2 * MAX_WORDS)),
     ]
@@ -654,15 +654,17 @@ class MsmKernels:
         outs = [torch.empty((self.words, W, n_rec), dtype=torch.int32, device=device) for _ in range(3 * self.deg)]
         return out_key, outs
 
-    def strip_mixed(self, skey, order, sign, bases, n_records: int, C: int, R: int, sent: int):
+    def strip_mixed(self, skey, order, sign, bases, n_records: int, C: int, R: int, dead: int, sent: int):
         """The strip pass over affine bases. skey, order (int64) and sign
         (bool), each (W, C*R): the sorted keys of every window, the record
         each came from and whether its point is negated. bases: the
         components of (X, Y), each (words, N0) with any strides, the same for
         all (the kernel reads them through the strides); record j is base
-        j % N0 for j < n_records and the point (0, 0) past it. Returns the
-        flush keys (W, (R+1)*C) and the components of the projective flush
-        points (words, W, (R+1)*C)."""
+        j % N0 for j < n_records and the point (0, 0) past it. dead: the
+        first key that reaches no bucket; a record keyed at or past it is
+        neither read nor added (its run sums to the identity). sent: the key
+        of a row without a flush. Returns the flush keys (W, (R+1)*C) and the
+        components of the projective flush points (words, W, (R+1)*C)."""
         W = skey.shape[0]
         _check_batched(skey, None, (W, C * R), "strip keys", torch.int64)
         out_key, outs = self._strip_outputs(W, C, R, skey.device)
@@ -679,17 +681,17 @@ class MsmKernels:
             raise ValueError("strip bases: the records must tile the bases")
         sw, sp = bases[0].stride()
         self._launch(
-            "strip_mixed", bases, outs, (W, C, R, n0, n_records, sw, sp, sent), skey, skey, order, sign, out_key
+            "strip_mixed", bases, outs, (W, C, R, n0, n_records, sw, sp, sent, dead), skey, skey, order, sign, out_key
         )
         return out_key, outs
 
-    def strip(self, skey, comps, C: int, R: int, sent: int):
+    def strip(self, skey, comps, C: int, R: int, dead: int, sent: int):
         """The strip pass over sorted projective records: strip s of window w
         walks records [w, s, 0..R). skey (W, C, R) int64 and comps, the
         components of (X, Y, Z), each (words, W, C, R), in any one layout of
         the last two axes inside a window's C*R block (the kernel is given
         their strides: (R, 1) as sorted, (1, C) with a row's lanes side by
-        side). Returns as strip_mixed."""
+        side). dead and sent, and the result, as strip_mixed."""
         if not _on_card(skey) or skey.dtype != torch.int64 or skey.dim() != 3:
             raise ValueError("strip keys: expected an int64 CUDA tensor of shape (W, C, R)")
         W = skey.shape[0]
@@ -711,7 +713,7 @@ class MsmKernels:
             if not ok or t.stride()[2:] != skey.stride()[1:] or t[:, :, 0, 0].stride() != (W * C * R, C * R):
                 raise ValueError(f"strip records: component {i} is not an int32 CUDA tensor of shape (words, W, C, R) in the keys' layout")
         out_key, outs = self._strip_outputs(W, C, R, skey.device)
-        self._launch("strip", comps, outs, (W, C, R, ss, sr, 0, 0, sent), skey, skey, out_key=out_key)
+        self._launch("strip", comps, outs, (W, C, R, ss, sr, 0, 0, sent, dead), skey, skey, out_key=out_key)
         return out_key, outs
 
     def scan_step(self, comps, shift: int, width: int, key=None):

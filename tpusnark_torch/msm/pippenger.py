@@ -9,8 +9,9 @@ then
 * N <= 96: the bit ladder;
 * small N: a segmented Hillis-Steele log-scan into buckets;
 * large N: strip accumulation (C strips of R rows, one C-wide complete mixed
-  add per row, flush records at key boundaries), then the flush records are
-  reduced by ``weighted_from_records`` (c >= 10) or a log-scan;
+  add per row, flush records at key boundaries; a record whose key reaches no
+  bucket is neither read nor added), then the flush records are reduced by
+  ``weighted_from_records`` (c >= 10) or a log-scan;
 * bucket weighting by radix split, and Horner over the windows.
 
 PyTorch runs eagerly, so where tpusnark maps a jitted per-window function
@@ -255,7 +256,7 @@ class MSM:
 
         skey, order, ssgn = self._sort_records(scalars, inf, M)
         if use_strips:
-            fkeys, fpts = self._strip_mixed(skey, order, ssgn, (X, Y), k, C, R, BK + 1)
+            fkeys, fpts = self._strip_mixed(skey, order, ssgn, (X, Y), k, C, R, BK, BK + 1)
             if c - 1 > 8 and Bp >= 1024:
                 wsums = self._weighted_from_records(fkeys, fpts, k, C)
             else:
@@ -361,39 +362,47 @@ class MSM:
             lambda ini, a: ini.scatter(-1, sidx.expand(a.shape), a)[..., :nbuckets].contiguous(), base, pts
         )
 
-    def _strip_mixed(self, skey, order, ssgn, XY, k: int, Cs: int, Rs: int, sent: int):
+    def _strip_mixed(self, skey, order, ssgn, XY, k: int, Cs: int, Rs: int, dead: int, sent: int):
         """The strip pass over the sorted records of every window, from the
         affine bases XY (words, N0): record j < k * N0 is base j % N0, later
         records are padding (the point (0, 0), under the DEAD key); ssgn
         marks the records whose point is negated. skey, order, ssgn: (W,
         Cs*Rs). Returns as _strip_flush. One launch on the card (B5), which
-        gathers the bases itself."""
+        gathers the bases itself. Counts the records in ``msm_records`` and,
+        while a recording is open, those keyed at or past `dead` in
+        ``msm_dead_records`` (a sync)."""
         ops = self.ops
+        trace.count("msm_records", skey.numel())
+        if trace.current() is not None:
+            trace.count("msm_dead_records", int((skey >= dead).sum()))
         if _on_card(XY):
-            return ops.strip_mixed(skey, order, ssgn, XY, k * _last(XY), Cs, Rs, sent)
+            return ops.strip_mixed(skey, order, ssgn, XY, k * _last(XY), Cs, Rs, dead, sent)
         Xg, Yg = self._gather_bases(XY, k, Cs * Rs, order)
         Yg = ops.fa.select(ssgn, ops.fa.neg(Yg), Yg)
-        return self._strip_flush(skey, (Xg, Yg), Cs, Rs, sent, mixed=True)
+        return self._strip_flush(skey, (Xg, Yg), Cs, Rs, dead, sent, mixed=True)
 
-    def _strip(self, skey, pts, Cs: int, Rs: int, sent: int):
+    def _strip(self, skey, pts, Cs: int, Rs: int, dead: int, sent: int):
         """The strip pass over sorted projective records (words, W, Cs*Rs);
         returns as _strip_flush. One launch on the card (B6)."""
         if _on_card(pts):
-            return self.ops.strip(skey, pts, Cs, Rs, sent)
-        return self._strip_flush(skey, pts, Cs, Rs, sent, mixed=False)
+            return self.ops.strip(skey, pts, Cs, Rs, dead, sent)
+        return self._strip_flush(skey, pts, Cs, Rs, dead, sent, mixed=False)
 
-    def _strip_flush(self, skey, pts, Cs: int, Rs: int, sent: int, mixed: bool):
+    def _strip_flush(self, skey, pts, Cs: int, Rs: int, dead: int, sent: int, mixed: bool):
         """Strip accumulation, step by step (the plain version of the strip
         kernels): Cs strips of Rs sequential rows per window, one (W*Cs)-wide
         add per row, a flush record at each key boundary. Returns (W,
         (Rs+1)*Cs) flush keys and projective flush points; rows without a
-        flush are keyed `sent`. mixed: pts is the gathered affine (X, Y) pair
-        (complete mixed adds); else projective."""
+        flush are keyed `sent`. A row keyed at or past `dead` reaches no
+        bucket: the accumulator becomes the identity instead of taking the
+        row's point. mixed: pts is the gathered affine (X, Y) pair (complete
+        mixed adds); else projective."""
         ops = self.ops
         W = skey.shape[0]
         keys2 = skey.reshape(W, Cs, Rs)
         pts2 = tree_map(lambda a: a.reshape(a.shape[:-1] + (Cs, Rs)), pts)
-        acc = ops.identity_like(tree_map(lambda a: a[..., 0], pts2[0]))
+        ident = ops.identity_like(tree_map(lambda a: a[..., 0], pts2[0]))
+        acc = ident
         acc_key = torch.full((W, Cs), sent, dtype=skey.dtype, device=skey.device)
         fkeys, fpts = [], []
         for r in range(Rs):
@@ -404,6 +413,7 @@ class MSM:
                 new_acc = ops.select(same, ops.add_mixed(acc, pt), ops.from_affine(pt))
             else:
                 new_acc = ops.select(same, ops.add(acc, pt), pt)
+            new_acc = ops.select(kk < dead, new_acc, ident)
             fkeys.append(torch.where(same, sent, acc_key))
             fpts.append(acc)
             acc, acc_key = new_acc, kk
@@ -418,13 +428,14 @@ class MSM:
 
     def _strip_reduce(self, skey, pts, m: int, nbuckets: int, sent: int):
         """Sorted projective records -> nbuckets bucket sums via one strip
-        pass and a small log-scan over the <= nbuckets + C2 survivors."""
+        pass and a small log-scan over the <= nbuckets + C2 survivors. Keys
+        at or past nbuckets reach no bucket (the pass drops them)."""
         C2 = max(128, min(1024, 1 << max(0, (m - 1).bit_length() - 5)))
         R2 = -(-m // C2)
         M2 = C2 * R2
         skey = _pad_last(skey, M2, sent)
         pts = tree_map(lambda a: _pad_last(a, M2), pts)
-        fkeys, fpts = self._strip(skey, pts, C2, R2, sent)
+        fkeys, fpts = self._strip(skey, pts, C2, R2, nbuckets, sent)
         K2 = min((R2 + 1) * C2, nbuckets + C2)
         ridx = torch.argsort(fkeys, dim=-1, stable=True)[:, :K2]
         return self._log_scan_buckets(

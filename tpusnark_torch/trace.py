@@ -49,6 +49,18 @@ family), at the call site, whatever the device:
                lists of the prove path (the solver's hint outputs, k_wires,
                the commitment wires)
     d2h_bytes  bytes read back: each ``Field.decode``, the ``.any()`` flag
+    msm_records
+               the sorted records of the MSMs' strip passes over their
+               bases, W windows x M records (padding included) a pass
+               (``MSM._strip_mixed``)
+
+and one only while a recording is open, since reading it waits for the
+device (a sync of the counter's own, not counted in ``sync``):
+
+    msm_dead_records
+               of those records, the ones keyed at or past the first key
+               that reaches no bucket (a zero digit, an infinity base, the
+               padding): the strip pass neither reads nor adds them
 
 A ``Recording`` holds its spans, the hint totals and the counters' change
 while it was open; ``totals()`` gives per span name the count, the seconds
@@ -66,7 +78,7 @@ from typing import NamedTuple
 import torch
 from torch.profiler import record_function
 
-COUNTS: dict[str, int] = {"sync": 0, "h2d_bytes": 0, "d2h_bytes": 0}
+COUNTS: dict[str, int] = {"sync": 0, "h2d_bytes": 0, "d2h_bytes": 0, "msm_records": 0, "msm_dead_records": 0}
 
 
 def count(name: str, n: int = 1) -> None:

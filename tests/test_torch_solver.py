@@ -8,11 +8,14 @@ level, MiMC, the wide circuit of chip_smoke.py at 64 chains); those against
 differs from tpusnark's for BLS12-381 fr, 2^288 against 2^272); unsatisfied
 circuits by error type and constraint index. Also: the host/device shape
 rule against tpusnark's, no inversion on a level without an L/R unknown,
-one solver per constraint system, the branch solve_any takes, and the
-accelerator option. The card as the default device: tests/
+one solver per constraint system, the branch solve_any takes, the
+accelerator option, the narrow levels' dense term grids (their layout,
+and their solve against the segment sums'), and a level's inverse and
+division hints run as one batch. The card as the default device: tests/
 test_torch_groth16.py:test_layer_entry_points_run_on_the_card_unless_the_caller_names_the_cpu."""
 
 import gc
+import random
 
 import pytest
 import torch
@@ -217,6 +220,68 @@ def test_a_level_without_an_l_or_r_unknown_computes_no_inverse(priced, name, mon
     assert len(calls) == sum(("L" in s) + ("R" in s) for s in sides)
     assert sum(1 for s in sides if s) > len(calls) >= 1  # the other levels invert nothing
     assert jsolver_jax.get_level_solver(pair.jax, BN254_FR).has_any_inv  # tpusnark inverts on every level
+
+
+@pytest.mark.parametrize("name", sorted(HOST_PRICED))
+def test_dense_grids_and_segment_sums_solve_alike(priced, name, monkeypatch):
+    """Every level of these circuits is narrow, so each takes the dense
+    grid (its hint inputs too); with DENSE_LANES at 0 each takes the
+    segment sum. Both solve as the host solver."""
+    pair = priced[name]
+    cs, assign = pair.port, pair.assigns[0]
+    want = tsolver.solve(cs, assign)
+    f = st.get_field(tspec.BN254_FR)
+    dense = st.LevelSolver(cs, f, "cpu")
+    assert all(p.dense is not None for p in dense.plans if p.nI)
+    assert all(p.hint_dense is not None for p in dense.plans if p.n_hint_inputs)
+    monkeypatch.setattr(st, "DENSE_LANES", 0)
+    sparse = st.LevelSolver(cs, f, "cpu")
+    assert all(p.dense is None and p.hint_dense is None for p in sparse.plans)
+    assert f.decode(dense.solve(assign)) == want == f.decode(sparse.solve(assign))
+
+
+def test_a_dense_grid_puts_each_term_in_its_row_and_pads_with_zero(monkeypatch):
+    """Two groups of three rows: group 0's row 0 has three terms, row 1
+    none, row 2 one; group 1's row 0 one. Slot (s, m) holds row m's s-th
+    term, m = group * 3 + row; the rows are padded to S = 4 with the zero
+    coefficient, and the sums are the rows' linear combinations."""
+    cs, _ = mimc(TBuilder)
+    f = st.get_field(tspec.BN254_FR)
+    s = st.LevelSolver(cs, f, "cpu")
+    sides = [([0, 0, 0, 2], [3, 4, 5, 6], [7, 8, 9, 10]), ([0], [11], [12])]
+    coef, vids, S, M = s._dense(sides, 3)
+    assert (S, M) == (4, 6) and coef.shape == (f.n, 24)
+    want_cid, want_vid = [s.zero_cid] * 24, [0] * 24
+    for slot, cid, vid in ((0, 3, 7), (6, 4, 8), (12, 5, 9), (2, 6, 10), (3, 11, 12)):
+        want_cid[slot], want_vid[slot] = cid, vid
+    coeffs = list(cs.coeffs) + [0]
+    assert vids.tolist() == want_vid
+    assert f.decode(coef) == [coeffs[c] for c in want_cid]
+    vals = [(7 * i + 1) % P for i in range(cs.n_wires)]
+    W = f.encode(vals, mont=True)
+    got = f.decode(s._sums(W, (coef, vids, S, M)))
+    c, w = cs.coeffs, vals
+    assert got == [
+        (c[3] * w[7] + c[4] * w[8] + c[5] * w[9]) % P, 0, c[6] * w[10] % P, c[11] * w[12] % P, 0, 0,
+    ]
+    # the grid holds 4 * 6 slots: one fewer allowed, and the segment sum takes it
+    monkeypatch.setattr(st, "DENSE_LANES", 23)
+    assert s._dense(sides, 3) is None
+
+
+@pytest.mark.parametrize("fn", sorted(st.BATCHED, key=lambda f: f.__name__), ids=lambda f: f.__name__)
+def test_a_batch_of_hint_calls_gives_each_calls_outputs(fn):
+    """One inverse for a level's calls (Montgomery's trick) gives what each
+    call gives alone, zeros (0/0 -> 0, 1/0 -> 0) and p itself included."""
+    rng = random.Random(7)
+    n_in = 1 if fn is st.inv_hint else 2
+    calls = [[rng.randrange(P) for _ in range(n_in)] for _ in range(40)]
+    for k in (0, 5, 17, 39):
+        calls[k][-1] = 0
+    calls[9][-1] = P
+    calls[11][0] = 0
+    for ins in ([], calls[:1], calls[:2], [calls[0]] * 3, calls):
+        assert st.BATCHED[fn](P, ins) == [fn(P, list(x)) for x in ins]
 
 
 def test_two_circuits_get_their_own_solver():

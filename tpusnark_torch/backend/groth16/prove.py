@@ -90,7 +90,9 @@ def prove(cs, pk, assignment: dict, rng=None, config=None, timings: dict | None 
 
     `timings`: optional dict filled with per-phase wall-clock seconds; timing
     synchronises the device between phases, so pass it only to measure. The
-    phases are the spans ``groth16.<phase>`` of ``tpusnark_torch.trace``."""
+    phases are the spans ``groth16.<phase>`` of ``tpusnark_torch.trace``;
+    the device solver adds its split of ``solve`` (``solve_levels``,
+    ``solve_hints``)."""
     cfg = ported_curve(pk.curve)
     if cs.commitments and cfg.name != "bn254":
         raise NotImplementedError("BSB22 commitments are BN254-only for now")
@@ -123,6 +125,7 @@ def _prove(cs, pk, assignment, rng, config, timings, device, cfg):
             force_host=pcfg.accelerator == "host",
             logs=pcfg.solver_logs,
             device=device,
+            timings=timings,
         )
     n = pk.domain_n
 

@@ -17,6 +17,13 @@ operations over all of its instructions:
     on the device once, when the solver is built; tpusnark uploads them at
     every solve and pads them to powers of two to bound its JIT compiles,
     which PyTorch's eager launches do not need;
+  * a narrow level (at most DENSE_LANES term slots once padded) keeps its
+    L, R and O terms as one dense grid instead: slot (s, m) holds row m's
+    s-th term, its coefficient gathered once at build time, rows padded
+    with a zero coefficient to a power-of-two count S. Its three sums are
+    then one gather of W, one product (B1) and log2(S) lazy adds, where
+    the segment sum takes some thirty operations a side: a deep circuit's
+    levels are bound by the host's launches, not by the card;
   * a level inverts r only if one of its instructions has its unknown in
     L, and l only if one has it in R (tpusnark inverts both on every level
     once any level needs one; the lanes that do not use them discard them);
@@ -25,7 +32,9 @@ operations over all of its instructions:
   * hints sync to the host once per hint-bearing level: their inputs are
     evaluated on the device, decoded, run in Python, re-encoded and
     scattered (the spans ``solver.hints.{wait,decode,run,encode}`` of
-    ``tpusnark_torch.trace``);
+    ``tpusnark_torch.trace``); a level's inverse and div_unchecked hints
+    share one modular inverse (Montgomery's trick, ``BATCHED``), where a
+    twisted Edwards addition's two divisions cost a Python ``pow`` each;
   * satisfaction is checked in one bulk pass at the end (A_i * B_i == C_i
     for every constraint, through the port's ABCEvaluator), whose A/B/C the
     Groth16 prover takes as they are.
@@ -46,11 +55,14 @@ from .. import trace
 from ..fields.spec import FieldSpec
 from ..fields.tfield import Field, compute_device, get_field
 from .eval_torch import abc_evaluator
-from .hints import hint_name
+from .hints import div_unchecked_hint, hint_name, inv_hint
 from .solver import UnsatisfiedConstraintError
 from .system import ConstraintSystem
 
 CODE_O, CODE_L, CODE_R = 1, 2, 3
+# a level's term grid (rows x padded terms a row) is dense up to this many
+# slots: below it a launch costs about the same at any width
+DENSE_LANES = 1 << 18
 
 
 def _terms(rows, cids, vids, device):
@@ -61,12 +73,38 @@ def _terms(rows, cids, vids, device):
     return tuple(torch.from_numpy(np.asarray(a, dtype=np.int64)).to(device) for a in (r, cids, vids)) + (max_seg,)
 
 
+def _inverses(p, xs):
+    """1/x mod p for each x, 0 for x = 0 mod p: one pow for all."""
+    xs = [x % p for x in xs]
+    prefix, acc = [], 1
+    for x in xs:
+        prefix.append(acc)
+        if x:
+            acc = acc * x % p
+    inv, out = pow(acc, -1, p), [0] * len(xs)
+    for i in range(len(xs) - 1, -1, -1):
+        if xs[i]:
+            out[i] = inv * prefix[i] % p
+            inv = inv * xs[i] % p
+    return out
+
+
+# hint function -> (its calls' input lists -> their output lists), the
+# calls of one level at once; the same outputs as the function's
+BATCHED = {
+    inv_hint: lambda p, ins: [[v] for v in _inverses(p, [x for (x,) in ins])],
+    div_unchecked_hint: lambda p, ins: [[a * v % p] for (a, _), v in zip(ins, _inverses(p, [b for _, b in ins]))],
+}
+
+
 class _LevelPlan:
     """One dependency level's arenas, on the solver's device: the
     instructions that solve a wire (codes, 1/k in Montgomery form, target
-    wires, a term triple per side) and the hints with theirs."""
+    wires, a dense grid or else a term triple per side) and the hints with
+    theirs."""
 
-    __slots__ = ("nI", "terms", "is_l", "is_r", "kinv", "targets", "hints", "hint_terms", "n_hint_inputs")
+    __slots__ = ("nI", "terms", "dense", "is_l", "is_r", "kinv", "targets", "hints", "hint_terms", "hint_dense",
+                 "n_hint_inputs")
 
 
 class LevelSolver:
@@ -79,7 +117,9 @@ class LevelSolver:
         self.f = field
         self.device = device = compute_device(device)
         p = cs.modulus
-        self.coeffs = field.encode(cs.coeffs, mont=True, device=device)
+        # one zero past the table: the coefficient of a dense grid's padding
+        self.coeffs = field.encode(list(cs.coeffs) + [0], mont=True, device=device)
+        self.zero_cid = len(cs.coeffs)
         self.plans: list[_LevelPlan] = []
         for insts in cs.compute_levels():
             plan = _LevelPlan()
@@ -118,7 +158,9 @@ class LevelSolver:
             plan.is_r = code_t == CODE_R if CODE_R in code else None
             plan.kinv = field.encode(kinv, mont=True, device=device)
             plan.targets = torch.tensor(targets, dtype=torch.int64, device=device)
-            plan.terms = {s: _terms(rows[s], cids[s], vids[s], device) for s in "LRO"}
+            plan.dense = self._dense([(rows[s], cids[s], vids[s]) for s in "LRO"], plan.nI)
+            if plan.dense is None:
+                plan.terms = {s: _terms(rows[s], cids[s], vids[s], device) for s in "LRO"}
             plan.hints = hints
             h_rows, h_cids, h_vids = [], [], []
             n_in = 0
@@ -130,8 +172,51 @@ class LevelSolver:
                         h_vids.append(vid)
                     n_in += 1
             plan.n_hint_inputs = n_in
-            plan.hint_terms = _terms(h_rows, h_cids, h_vids, device)
+            plan.hint_dense = self._dense([(h_rows, h_cids, h_vids)], n_in)
+            if plan.hint_dense is None:
+                plan.hint_terms = _terms(h_rows, h_cids, h_vids, device)
             self.plans.append(plan)
+
+    def _dense(self, sides, n):
+        """The dense grid of len(sides) groups of n linear expressions, each
+        a term triple with its rows ascending: (coefficients (words, S*M)
+        Montgomery, wire ids (S*M,), S, M) with M = n*len(sides) and S the
+        most terms of any row rounded up to a power of two; None where
+        S*M passes DENSE_LANES (the segment sum then does it)."""
+        m = n * len(sides)
+        if not m:
+            return None
+        counts = np.zeros(m, dtype=np.int64)
+        for g, (rows, _, _) in enumerate(sides):
+            if rows:
+                counts[g * n : (g + 1) * n] = np.bincount(np.asarray(rows, dtype=np.int64), minlength=n)
+        s = 1 << (max(int(counts.max()), 1) - 1).bit_length()
+        if s * m > DENSE_LANES:
+            return None
+        cid = np.full(s * m, self.zero_cid, dtype=np.int64)
+        vid = np.zeros(s * m, dtype=np.int64)
+        for g, (rows, cids, vids) in enumerate(sides):
+            if not rows:
+                continue
+            r = np.asarray(rows, dtype=np.int64)
+            pos = np.arange(r.size) - np.searchsorted(r, r)  # the term's place in its row
+            slot = pos * m + g * n + r
+            cid[slot] = cids
+            vid[slot] = vids
+        dev = self.device
+        coef = self.coeffs[:, torch.from_numpy(cid).to(dev)]
+        return coef, torch.from_numpy(vid).to(dev), s, m
+
+    def _sums(self, W, dense):
+        """(words, M) Montgomery values of a dense grid's M expressions: the
+        grid's products, then halves added until one row is left."""
+        f = self.f
+        coef, vids, s, m = dense
+        x = f.mul(coef, W[:, vids])
+        while s > 1:
+            s //= 2
+            x = f.add(x[:, : s * m], x[:, s * m :])
+        return x
 
     def _eval(self, W, n, rows, cids, vids, max_seg):
         """(words, n) Montgomery values of n linear expressions given as a
@@ -143,7 +228,11 @@ class LevelSolver:
 
     def _run_level(self, W, plan):
         f, n = self.f, plan.nI
-        l, r, o = (self._eval(W, n, *plan.terms[s]) for s in "LRO")
+        if plan.dense is not None:
+            x = self._sums(W, plan.dense)
+            l, r, o = x[:, :n], x[:, n : 2 * n], x[:, 2 * n :]
+        else:
+            l, r, o = (self._eval(W, n, *plan.terms[s]) for s in "LRO")
         # in O: w = (l*r - o_rest) / k
         w = f.mul(f.sub(f.mul(l, r), o), plan.kinv)
         if plan.is_l is not None:
@@ -158,7 +247,10 @@ class LevelSolver:
     def _run_hints(self, W, plan, overrides):
         """One host sync for all of a level's hints."""
         f, p = self.f, self.cs.modulus
-        ins = self._eval(W, plan.n_hint_inputs, *plan.hint_terms)
+        if plan.hint_dense is not None:
+            ins = self._sums(W, plan.hint_dense)
+        else:
+            ins = self._eval(W, plan.n_hint_inputs, *plan.hint_terms)
         with trace.span("solver.hints.wait"):
             trace.wait(W.device)
         with trace.span("solver.hints.decode"):
@@ -166,25 +258,42 @@ class LevelSolver:
         rec = trace.current()
         out_wires, out_vals = [], []
         off = 0
+        batches: dict = {}
         with trace.span("solver.hints.run"):
             for h in plan.hints:
                 fn = overrides.get(hint_name(h.fn), h.fn) if overrides else h.fn
                 n_in = len(h.inputs)
+                args = vals[off : off + n_in]
+                off += n_in
+                if any(fn is b for b in BATCHED):
+                    batches.setdefault((fn, hint_name(h.fn)), []).append((h, args))
+                    continue
                 t0 = time.perf_counter_ns() if rec is not None else 0
-                outs = fn(p, vals[off : off + n_in])
+                outs = fn(p, args)
                 if rec is not None:
                     rec.add_hint(hint_name(h.fn), time.perf_counter_ns() - t0)
-                off += n_in
-                if len(outs) != len(h.outputs):
-                    raise RuntimeError(f"hint {hint_name(h.fn)}: {len(outs)} outputs, want {len(h.outputs)}")
-                out_wires.extend(h.outputs)
-                out_vals.extend(int(v) % p for v in outs)
+                self._take(h, outs, out_wires, out_vals)
+            for (fn, name), calls in batches.items():
+                t0 = time.perf_counter_ns() if rec is not None else 0
+                outs = BATCHED[fn](p, [args for _, args in calls])
+                if rec is not None:
+                    rec.add_hint(name, time.perf_counter_ns() - t0, len(calls))
+                for (h, _), o in zip(calls, outs):
+                    self._take(h, o, out_wires, out_vals)
         with trace.span("solver.hints.encode"):
             trace.count("h2d_bytes", 8 * len(out_wires))
             idx = torch.tensor(out_wires, dtype=torch.int64, device=W.device)
             W[:, idx] = f.encode(out_vals, mont=True, device=W.device)
 
-    def solve_with_abc(self, assignment: dict, hint_overrides: dict | None = None):
+    def _take(self, h, outs, out_wires, out_vals):
+        """A hint call's outputs, checked against its output wires."""
+        if len(outs) != len(h.outputs):
+            raise RuntimeError(f"hint {hint_name(h.fn)}: {len(outs)} outputs, want {len(h.outputs)}")
+        p = self.cs.modulus
+        out_wires.extend(h.outputs)
+        out_vals.extend(int(v) % p for v in outs)
+
+    def solve_with_abc(self, assignment: dict, hint_overrides: dict | None = None, timings: dict | None = None):
         """-> (W, (A, B, C)): W the (words, n_wires) Montgomery wire vector
         on the device, and the per-constraint evaluations of the bulk check,
         each (words, n_constraints) Montgomery (the Groth16 prover's input,
@@ -193,7 +302,14 @@ class LevelSolver:
         UnsatisfiedConstraintError at the first unsatisfied constraint.
 
         hint_overrides: {hint fn or name -> replacement}, the prover's
-        OverrideHint seam (same contract as solver.solve): BSB22 needs it."""
+        OverrideHint seam (same contract as solver.solve): BSB22 needs it.
+
+        timings: optional dict; host seconds are added under
+        ``solve_levels`` (the ``_run_level`` calls: the levels' launches,
+        not waited for) and ``solve_hints`` (the ``_run_hints`` calls: the
+        inputs' launches, wait, decode, run and encode). The clock is read
+        around what runs anyway, with no synchronise of its own; without
+        `timings` it is not read."""
         cs, f = self.cs, self.f
         p = cs.modulus
         n_in = cs.n_public + len(cs.secret_names)
@@ -210,13 +326,23 @@ class LevelSolver:
         W = f.zeros((cs.n_wires,), device=self.device)
         W[:, :n_in] = f.encode(init, mont=True, device=self.device)
         overrides = {k if isinstance(k, str) else hint_name(k): v for k, v in (hint_overrides or {}).items()}
+        levels_s = hints_s = 0.0
         for plan in self.plans:
             if plan.nI:
                 with trace.span("solver.level"):
+                    t0 = time.perf_counter() if timings is not None else 0.0
                     self._run_level(W, plan)
+                    if timings is not None:
+                        levels_s += time.perf_counter() - t0
             if plan.hints:
                 with trace.span("solver.hints"):
+                    t0 = time.perf_counter() if timings is not None else 0.0
                     self._run_hints(W, plan, overrides)
+                    if timings is not None:
+                        hints_s += time.perf_counter() - t0
+        if timings is not None:
+            timings["solve_levels"] = timings.get("solve_levels", 0.0) + levels_s
+            timings["solve_hints"] = timings.get("solve_hints", 0.0) + hints_s
         with trace.span("solver.check"):
             return W, self._check(W)
 
@@ -294,6 +420,7 @@ def solve_any(
     force_host: bool = False,
     logs: bool = True,
     device="cuda",
+    timings: dict | None = None,
 ):
     """Solve on `device` (the card unless the caller names the CPU) when the
     level shape favours it, else on the host; the choice is made before
@@ -302,10 +429,11 @@ def solve_any(
     Returns (W_mont, abc, W_ints): W_mont (words, n_wires) on the device and
     abc = (A, B, C) from its bulk check, or W_ints (Python ints) from the
     host solver. force_host pins the host solver (ProverConfig
-    accelerator="host")."""
+    accelerator="host"). timings: the device branch adds its split to it
+    (``LevelSolver.solve_with_abc``); the host branch writes nothing."""
     device = compute_device(device)
     if not force_host and prefer_device(cs):
-        W, abc = get_level_solver(cs, spec, device).solve_with_abc(assignment, hint_overrides)
+        W, abc = get_level_solver(cs, spec, device).solve_with_abc(assignment, hint_overrides, timings)
         return W, abc, None
     from .solver import solve as solve_host
 

@@ -34,9 +34,19 @@ The spans of the Groth16 prove (parent: children)::
         groth16.assemble.decode  the MSM sums read back and made affine
         groth16.assemble.host    the host group additions and multiplications
 
+``prove(timings=)`` adds each ``groth16.<phase>``'s seconds under its
+phase's name (``solve``, ``encode``, ``h``, ``msm``, ``assemble``;
+synchronised at each phase's end), and the device solver two keys of its
+own inside ``solve``: ``solve_levels``, the host seconds of the
+``solver.level`` calls (the launches, not waited for), and
+``solve_hints``, those of the ``solver.hints`` calls (the round trips,
+which wait anyway). The host solver writes neither.
+
 No program span is named ``prove`` or ``msm``: those are the benchmark's own.
 Inside ``solver.hints.run`` each hint function's calls and host seconds are
-added up by ``hint_name`` (``Recording.hints``), with no span per call.
+added up by ``hint_name`` (``Recording.hints``), with no span per call; a
+level's calls that the solver runs as one batch (``solver_torch.BATCHED``)
+add their count and the batch's seconds.
 
 Counters. ``count(name, n)`` adds to ``COUNTS``, always (like
 ``kernels.LAUNCHES``, the kernel wrappers' launch counter of the same
@@ -130,9 +140,9 @@ class Recording:
         self.records[idx].end_ns = time.perf_counter_ns()
         self._stack.pop()
 
-    def add_hint(self, name: str, ns: int) -> None:
+    def add_hint(self, name: str, ns: int, calls: int = 1) -> None:
         t = self.hints.setdefault(name, [0, 0])
-        t[0] += 1
+        t[0] += calls
         t[1] += ns
 
     @property

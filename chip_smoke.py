@@ -3374,10 +3374,10 @@ def phase_ecadd(torch, dev, pool, setup_only, off_path):
     ls = get_level_solver(cs, cfg.fr_spec, dev)
     run_hints, sync = ls._run_hints, {"s": 0.0, "levels": 0}
 
-    def timed_hints(W, plan, overrides):  # one level's host sync, timed alone
+    def timed_hints(*args):  # one level's host sync, timed alone
         _sync(torch, dev)
         t = time.perf_counter()
-        run_hints(W, plan, overrides)
+        run_hints(*args)
         _sync(torch, dev)
         sync["s"] += time.perf_counter() - t
         sync["levels"] += 1

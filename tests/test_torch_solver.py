@@ -10,8 +10,10 @@ circuits by error type and constraint index. Also: the host/device shape
 rule against tpusnark's, no inversion on a level without an L/R unknown,
 one solver per constraint system, the branch solve_any takes, the
 accelerator option, the narrow levels' dense term grids (their layout,
-and their solve against the segment sums'), and a level's inverse and
-division hints run as one batch. The card as the default device: tests/
+and their solve against the segment sums'), a level's inverse and
+division hints run as one batch, the segments between two hint syncs
+(the card's CUDA graphs, run eagerly here), and two solves in a row on
+one solver. The graphs themselves: tests/test_torch_solver_graphs.py. The card as the default device: tests/
 test_torch_groth16.py:test_layer_entry_points_run_on_the_card_unless_the_caller_names_the_cpu."""
 
 import gc
@@ -316,6 +318,50 @@ def test_solve_any_takes_the_branch_of_the_shape_rule(priced, monkeypatch):
     A, B, C = tsolver.compute_abc(cs, want)
     assert [f.decode(x) for x in abc] == [A, B, C]
     assert st.solve_any(cs, assign, tspec.BN254_FR, force_host=True, device="cpu")[2] == want
+
+
+@pytest.mark.parametrize("name", sorted(HOST_PRICED) + ["hints_and_bits"])
+def test_segments_partition_the_plans_in_order(priced, name):
+    """The segments hold the plans in order, each up to and including a
+    hint-bearing plan, the last one those after the last hint sync (left
+    out where none of them solves a wire); a segment may hold no solving
+    level (a hint level right after another)."""
+    cs = hints_and_bits(TBuilder)[0] if name == "hints_and_bits" else priced[name].port
+    s = st.LevelSolver(cs, st.get_field(tspec.BN254_FR), "cpu")
+    flat = [p for seg in s.segments for p in seg.plans]
+    assert all(a is b for a, b in zip(flat, s.plans)) and len(flat) <= len(s.plans)
+    assert not any(p.nI or p.hints for p in s.plans[len(flat) :])
+    for seg in s.segments:
+        assert seg.plans and not any(p.hints for p in seg.plans[:-1])
+        assert seg.hint_plan is (seg.plans[-1] if seg.plans[-1].hints else None)
+        assert seg.n_levels == sum(1 for p in seg.plans if p.nI)
+    assert all(seg.hint_plan is not None for seg in s.segments[:-1])
+    hint_plans = sum(1 for p in s.plans if p.hints)
+    assert sum(seg.hint_plan is not None for seg in s.segments) == hint_plans
+    assert hint_plans >= (name in ("hints_and_bits", "wide"))
+
+
+TWO_ASSIGNMENTS = {
+    "hints_and_bits": (hints_and_bits, [{"x": 0xABCD, "y": 0xCD}, {"x": 0x1234, "y": 0x34}]),
+    "is_zero_branches": (is_zero_branches, [{"x": 0, "y": 1}, {"x": 5, "y": 0}]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TWO_ASSIGNMENTS))
+def test_two_solves_in_a_row_on_one_solver_equal_the_host_solver(name):
+    """One solver, two assignments: each solve equals the host solver, and
+    the W the first solve handed out is the same after the second (a solve
+    hands out a copy of the solver's own wire vector)."""
+    make, assigns = TWO_ASSIGNMENTS[name]
+    cs, _ = make(TBuilder)
+    f = st.get_field(tspec.BN254_FR)
+    s = st.LevelSolver(cs, f, "cpu")
+    first = s.solve(assigns[0])
+    kept = first.clone()
+    second = s.solve(assigns[1])
+    assert f.decode(first) == tsolver.solve(cs, assigns[0])
+    assert f.decode(second) == tsolver.solve(cs, assigns[1]) != f.decode(first)
+    assert torch.equal(first, kept) and first.data_ptr() != s.W.data_ptr()
 
 
 def test_accelerator_option():

@@ -35,6 +35,14 @@ operations over all of its instructions:
     ``tpusnark_torch.trace``); a level's inverse and div_unchecked hints
     share one modular inverse (Montgomery's trick, ``BATCHED``), where a
     twisted Edwards addition's two divisions cost a Python ``pow`` each;
+  * the launches between two hint syncs are fixed when the solver is built
+    (nothing in a level reads the device back), so the levels are grouped
+    into segments, each up to and including the next hint-bearing level and
+    that level's hint inputs. On the card a segment is captured as one CUDA
+    graph at its first solve and replayed after: one host call in place of
+    some ten launches a level. W is then the solver's own tensor, the
+    graphs' operand; a solve hands out a copy. On the CPU the segments run
+    eagerly through the same function;
   * satisfaction is checked in one bulk pass at the end (A_i * B_i == C_i
     for every constraint, through the port's ABCEvaluator), whose A/B/C the
     Groth16 prover takes as they are.
@@ -51,7 +59,7 @@ import time
 import numpy as np
 import torch
 
-from .. import trace
+from .. import kernels, trace
 from ..fields.spec import FieldSpec
 from ..fields.tfield import Field, compute_device, get_field
 from .eval_torch import abc_evaluator
@@ -107,9 +115,27 @@ class _LevelPlan:
                  "n_hint_inputs")
 
 
+class _Segment:
+    """The plans from one hint sync up to and including the next
+    hint-bearing plan (``hint_plan``; None for the levels after the last
+    sync): the device work between two host round trips. On the card,
+    ``graph`` holds its launches captured at its first run, ``ins`` the
+    hint inputs that the graph writes, ``launches`` the kernel launches a
+    replay makes, by wrapper name."""
+
+    __slots__ = ("plans", "hint_plan", "n_levels", "graph", "ins", "launches")
+
+    def __init__(self, plans):
+        self.plans = plans
+        self.hint_plan = plans[-1] if plans[-1].hints else None
+        self.n_levels = sum(1 for p in plans if p.nI)
+        self.graph = self.ins = self.launches = None
+
+
 class LevelSolver:
     """Device solver bound to (ConstraintSystem, Field, device): the card
-    unless the caller names the CPU. Build once, reuse."""
+    unless the caller names the CPU. Build once, reuse; one solve at a
+    time (W and the segments' graphs are the solver's own)."""
 
     def __init__(self, cs: ConstraintSystem, field: Field, device="cuda"):
         cs.finalize()
@@ -176,6 +202,21 @@ class LevelSolver:
             if plan.hint_dense is None:
                 plan.hint_terms = _terms(h_rows, h_cids, h_vids, device)
             self.plans.append(plan)
+        self.segments: list[_Segment] = []
+        start = 0
+        for i, plan in enumerate(self.plans):
+            if plan.hints:
+                self.segments.append(_Segment(self.plans[start : i + 1]))
+                start = i + 1
+        if any(p.nI for p in self.plans[start:]):
+            self.segments.append(_Segment(self.plans[start:]))
+        self.W = field.zeros((cs.n_wires,), device=device)
+        # the constants the levels read, made now: a capture cannot copy
+        # from the host
+        field.one(device)
+        field.const(field.r2, device=device)
+        field._p_words(device)
+        self._pool = self._stream = None
 
     def _dense(self, sides, n):
         """The dense grid of len(sides) groups of n linear expressions, each
@@ -244,13 +285,61 @@ class LevelSolver:
             w = torch.where(plan.is_r, torch.where(f.is_zero(l), 0, w_r), w)
         W[:, plan.targets] = w
 
-    def _run_hints(self, W, plan, overrides):
-        """One host sync for all of a level's hints."""
-        f, p = self.f, self.cs.modulus
+    def _run_segment(self, seg):
+        """A segment's launches: its levels, then its hint inputs, which it
+        returns ((words, n_hint_inputs) Montgomery; None without hints)."""
+        W = self.W
+        for plan in seg.plans:
+            if plan.nI:
+                self._run_level(W, plan)
+        plan = seg.hint_plan
+        if plan is None:
+            return None
         if plan.hint_dense is not None:
-            ins = self._sums(W, plan.hint_dense)
-        else:
-            ins = self._eval(W, plan.n_hint_inputs, *plan.hint_terms)
+            return self._sums(W, plan.hint_dense)
+        return self._eval(W, plan.n_hint_inputs, *plan.hint_terms)
+
+    def _segment(self, seg):
+        """Run a segment and return its hint inputs: eagerly on the CPU; on
+        the card by replaying its graph, captured at its first run. A
+        replay adds the launches its capture made to ``kernels.LAUNCHES``."""
+        if self.device.type != "cuda":
+            return self._run_segment(seg)
+        if seg.graph is None:
+            self._capture(seg)
+        seg.graph.replay()
+        for name, n in seg.launches.items():
+            kernels.LAUNCHES[name] += n
+        trace.count("graph_replays")
+        trace.count("graph_levels", seg.n_levels)
+        return seg.ins
+
+    def _capture(self, seg):
+        """Capture a segment's launches as one CUDA graph on a side stream,
+        into the memory pool that all of the solver's graphs share: they
+        replay in capture order on one stream, never at once. An op that
+        waits for the device raises here."""
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+            self._stream = torch.cuda.Stream(self.device)
+        before = dict(kernels.LAUNCHES)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
+            graph.capture_begin(pool=self._pool)
+            try:
+                seg.ins = self._run_segment(seg)
+            finally:
+                graph.capture_end()
+        # nothing ran yet: the replays count the launches
+        seg.launches = {k: n - before[k] for k, n in kernels.LAUNCHES.items() if n != before[k]}
+        kernels.LAUNCHES.update(before)
+        seg.graph = graph
+        trace.count("graph_captures")
+
+    def _run_hints(self, W, plan, ins, overrides):
+        """One host sync for all of a level's hints, whose inputs `ins` the
+        level's segment evaluated."""
+        f, p = self.f, self.cs.modulus
         with trace.span("solver.hints.wait"):
             trace.wait(W.device)
         with trace.span("solver.hints.decode"):
@@ -305,11 +394,15 @@ class LevelSolver:
         OverrideHint seam (same contract as solver.solve): BSB22 needs it.
 
         timings: optional dict; host seconds are added under
-        ``solve_levels`` (the ``_run_level`` calls: the levels' launches,
-        not waited for) and ``solve_hints`` (the ``_run_hints`` calls: the
-        inputs' launches, wait, decode, run and encode). The clock is read
-        around what runs anyway, with no synchronise of its own; without
-        `timings` it is not read."""
+        ``solve_levels`` (the segments: on the card their graphs' replays,
+        and at the first solve their captures; the levels' and the hint
+        inputs' launches on the CPU; not waited for) and ``solve_hints``
+        (the ``_run_hints`` calls: wait, decode, run and encode). The clock
+        is read around what runs anyway, with no synchronise of its own;
+        without `timings` it is not read.
+
+        W is a copy of the solver's own wire vector: the next solve leaves
+        it as it is."""
         cs, f = self.cs, self.f
         p = cs.modulus
         n_in = cs.n_public + len(cs.secret_names)
@@ -323,28 +416,29 @@ class LevelSolver:
             if name not in assignment:
                 raise KeyError(f"missing secret input {name!r}")
             init[cs.n_public + j] = int(assignment[name]) % p
-        W = f.zeros((cs.n_wires,), device=self.device)
+        W = self.W
+        W.zero_()
         W[:, :n_in] = f.encode(init, mont=True, device=self.device)
         overrides = {k if isinstance(k, str) else hint_name(k): v for k, v in (hint_overrides or {}).items()}
         levels_s = hints_s = 0.0
-        for plan in self.plans:
-            if plan.nI:
-                with trace.span("solver.level"):
-                    t0 = time.perf_counter() if timings is not None else 0.0
-                    self._run_level(W, plan)
-                    if timings is not None:
-                        levels_s += time.perf_counter() - t0
-            if plan.hints:
+        for seg in self.segments:
+            with trace.span("solver.level"):
+                t0 = time.perf_counter() if timings is not None else 0.0
+                ins = self._segment(seg)
+                if timings is not None:
+                    levels_s += time.perf_counter() - t0
+            if seg.hint_plan is not None:
                 with trace.span("solver.hints"):
                     t0 = time.perf_counter() if timings is not None else 0.0
-                    self._run_hints(W, plan, overrides)
+                    self._run_hints(W, seg.hint_plan, ins, overrides)
                     if timings is not None:
                         hints_s += time.perf_counter() - t0
         if timings is not None:
             timings["solve_levels"] = timings.get("solve_levels", 0.0) + levels_s
             timings["solve_hints"] = timings.get("solve_hints", 0.0) + hints_s
         with trace.span("solver.check"):
-            return W, self._check(W)
+            abc = self._check(W)
+        return W.clone(), abc
 
     def solve(self, assignment: dict, hint_overrides: dict | None = None):
         """The (words, n_wires) Montgomery wire vector on the device."""

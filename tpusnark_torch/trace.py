@@ -14,9 +14,13 @@ The spans of the Groth16 prove (parent: children)::
 
     groth16.prove            the whole prove; a new proof id
       groth16.solve          the witness solve (``solve_any``), either branch
-        solver.level         one device level's instructions (device branch)
-        solver.hints         one hint-bearing level's host round trip; its
-                             self time launches the hints' inputs:
+        solver.level         one segment of the device branch: the levels
+                             up to and including the next hint-bearing
+                             one, and that level's hint inputs; on the card
+                             the replay of its CUDA graph (at the first
+                             solve also its capture), on the CPU its
+                             launches one by one
+        solver.hints         one hint-bearing level's host round trip:
           solver.hints.wait    the wait for the level's device work (an
                                explicit synchronise while recording on CUDA;
                                the decode would wait for it anyway)
@@ -38,9 +42,10 @@ The spans of the Groth16 prove (parent: children)::
 phase's name (``solve``, ``encode``, ``h``, ``msm``, ``assemble``;
 synchronised at each phase's end), and the device solver two keys of its
 own inside ``solve``: ``solve_levels``, the host seconds of the
-``solver.level`` calls (the launches, not waited for), and
-``solve_hints``, those of the ``solver.hints`` calls (the round trips,
-which wait anyway). The host solver writes neither.
+``solver.level`` calls (the replays or launches of the levels and of the
+hint inputs, not waited for), and ``solve_hints``, those of the
+``solver.hints`` calls (the round trips alone, which wait anyway). The
+host solver writes neither.
 
 No program span is named ``prove`` or ``msm``: those are the benchmark's own.
 Inside ``solver.hints.run`` each hint function's calls and host seconds are
@@ -63,6 +68,18 @@ family), at the call site, whatever the device:
                the sorted records of the MSMs' strip passes over their
                bases, W windows x M records (padding included) a pass
                (``MSM._strip_mixed``)
+    graph_captures
+               the device solver's segments captured as CUDA graphs: each
+               once, at the solver's first solve on the card
+    graph_replays
+               the replays of those graphs, one a segment a solve
+    graph_levels
+               the levels that the replays solved (levels that solve a
+               wire; a pure check's level is the bulk check's)
+
+A replay adds to ``kernels.LAUNCHES`` the launches its capture made, so
+that counter counts the kernels the card runs either way. On the CPU the
+segments run eagerly and the three graph counters stay at 0.
 
 and one only while a recording is open, since reading it waits for the
 device (a sync of the counter's own, not counted in ``sync``):
@@ -88,7 +105,11 @@ from typing import NamedTuple
 import torch
 from torch.profiler import record_function
 
-COUNTS: dict[str, int] = {"sync": 0, "h2d_bytes": 0, "d2h_bytes": 0, "msm_records": 0, "msm_dead_records": 0}
+COUNTS: dict[str, int] = dict.fromkeys(
+    ("sync", "h2d_bytes", "d2h_bytes", "msm_records", "msm_dead_records", "graph_captures", "graph_replays",
+     "graph_levels"),
+    0,
+)
 
 
 def count(name: str, n: int = 1) -> None:
